@@ -1,4 +1,4 @@
-"""caffe-escoin-tpu: a TPU-native sparse CNN inference/training framework.
+"""caffe-escoin-tpu: a sparse CNN inference/training framework for JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 chenxuhao/caffe-escoin (Escoin: efficient sparse convolutional neural network
@@ -9,9 +9,10 @@ convolution execution modes with fused bias/ReLU, a Caffe-style graph runtime
 via jax.sharding meshes (data / tensor / spatial-halo parallelism).
 
 Nothing here is a port: the reference is C++/CUDA (cuSPARSE, AVX intrinsics,
-NCCL); this framework is built TPU-first around the MXU (128x128 systolic
-array), VMEM-resident block-sparse tiles, XLA collectives over ICI, and
-functional transforms (jit/grad/shard_map).
+NCCL); this framework is built around sparsity patterns fixed at load time
+and executed by XLA (128x128 block-sparse tiles), one Pallas kernel where
+the pattern is only known at run time, XLA collectives, and functional
+transforms (jit/grad/shard_map).
 
 Reference layer map: see SURVEY.md section 1 (repo root).
 """

@@ -2,10 +2,9 @@
 
 The reference ingests image databases through LMDB/LevelDB
 (`src/caffe/util/db_lmdb.cpp:1-113`; `data_layer.cpp` reads `Datum`
-protobufs under "%08d"-style keys). This was the one remaining interop
-edge where the reference accepted an input this framework did not (r4
-VERDICT Missing #3): a user's existing LMDB training sets could not be
-consumed without reconversion. This module reads standard LMDB files
+protobufs under "%08d"-style keys), so a user's existing LMDB training
+sets must be consumable without reconversion. This module reads standard
+LMDB files
 directly — no liblmdb, no python-lmdb — by walking the B+tree in the
 memory-mapped data file:
 

@@ -1,12 +1,12 @@
 """Measured per-shape executor autotuning for the sparse conv dispatcher.
 
-The round-2 dispatcher picked the XBSP arm from hand rules derived from
-ResNet-50 profiles (`kernels/xla_block_sparse.best_arm`); on GoogLeNet's
-28x28 reduce-1x1 shapes those rules routed to "unroll" and LOST to the
-dense bf16 baseline (0.59x). The reference has the same problem class —
-its per-shape CUDA-kernel dispatch (`math_functions.cu:589-694`) hardcodes
-shape templates — and the fix here is the one the VERDICT asked for:
-MEASURE each candidate arm once per (shape, pattern) on the device, cache
+Hand rules for the XBSP arm (`kernels/xla_block_sparse.best_arm`) derived
+from one net's profiles route other nets' shapes badly (GoogLeNet's 28x28
+reduce-1x1 shapes went to "unroll" and lost to the dense bf16 baseline).
+The reference has the same problem class — its per-shape CUDA-kernel
+dispatch (`math_functions.cu:589-694`) hardcodes shape templates — and the
+fix here is to MEASURE each candidate arm once per (shape, pattern) on the
+device, cache
 the winner, and include the dense bf16 conv itself as a candidate so the
 sparse path can never lose to its own baseline (the never-lose floor).
 
@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -44,11 +45,11 @@ _RECORDING = threading.local()
 # active net scope for calibrated-assignment lookup (see net_scope): a
 # graph-calibration demotion is a property of one net's COMPOSITION, not of
 # the (shape, pattern) key alone — served globally it would force another
-# net's identical layer dense (ADVICE r4). Scoped entries live in the same
+# net's identical layer dense. Scoped entries live in the same
 # cache file under "net=<tag>|<key>".
 _NET_SCOPE: Optional[str] = None
 
-ARMS = ("unroll", "gathered", "gathered_cols", "dense", "fused")
+ARMS = ("unroll", "gathered", "gathered_cols", "dense")
 
 
 def _scoped_key(key: str, tag: Optional[str]) -> str:
@@ -81,11 +82,17 @@ def _pattern_sig(aligned) -> Tuple[int, int, int, int]:
     return total_live, union, int(block_row.shape[0]), aligned.bsc.n_brows
 
 
-def cache_key(aligned, x_shape, stride, padding, dilation, dtype) -> str:
+def device_kind() -> str:
+    """The card a measurement was taken on: the backend and the device's
+    kind (an arm measured on one card is not served on another)."""
     import jax
 
+    return f"{jax.default_backend()}:{jax.devices()[0].device_kind}"
+
+
+def cache_key(aligned, x_shape, stride, padding, dilation, dtype) -> str:
     sig = _pattern_sig(aligned)
-    parts = (jax.default_backend(), tuple(x_shape), str(dtype),
+    parts = (device_kind(), tuple(x_shape), str(dtype),
              aligned.kernel_shape, tuple(stride), tuple(padding),
              tuple(dilation), aligned.cin_pad, aligned.cout,
              aligned.groups, aligned.bsc.block_shape, sig)
@@ -98,11 +105,10 @@ _FINGERPRINT: Optional[str] = None
 def code_fingerprint() -> str:
     """Hash of the executor-kernel sources. A cached arm is a MEASUREMENT
     of specific kernel code; serving it after the kernels change silently
-    skips re-measurement (the r3->r4 hazard: the committed table's winners
-    were timed against the padded-ifmap unroll). The cache file records
-    this fingerprint and is ignored wholesale on mismatch.
+    skips re-measurement. The cache file records this fingerprint and is
+    ignored wholesale on mismatch.
 
-    Env toggles that change kernel BEHAVIOR are folded in too (ADVICE r4):
+    Env toggles that change kernel BEHAVIOR are folded in too:
     an arm measured under CESCOIN_XBSP_NOPAD=1 is a measurement of
     different code than the padded default — same hazard class as a source
     edit. The fingerprint is cached per-process, so flip toggles before
@@ -171,12 +177,10 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
     dtype = (policy.compute_dtype if policy.compute_dtype is not None
              else jnp.float32)
     # 4 distinct inputs cycled per measurement: repeated identical dispatch
-    # leaves the input VMEM-warm across executions and under-reports
-    # memory-bound arms (the warm-VMEM hazard, utils/benchmark.device_time)
-    # — with one buffer the tuner picked arms that LOSE under real cold
-    # reads. Weights stay closed-over (warm) in every arm alike, which
-    # favors the dense arm (its weights are the largest), keeping the
-    # never-lose floor conservative.
+    # leaves the input L2-warm across executions and under-reports
+    # memory-bound arms (utils/benchmark.device_time). Weights stay
+    # closed-over (warm) in every arm alike, which favors the dense arm (its
+    # weights are the largest), keeping the never-lose floor conservative.
     rng = np.random.default_rng(0)
     xsets = [(jnp.asarray(rng.standard_normal(x_shape), jnp.float32)
               .astype(dtype),) for _ in range(4)]
@@ -194,26 +198,15 @@ def measure_arms(aligned, policy, x_shape, stride, padding, dilation,
             y, wd, aligned.bias, stride=stride, padding=padding,
             dilation=dilation, groups=aligned.groups),
     }
-    # the Pallas fused-slab direct kernel (v3) competes where its VMEM
-    # budget admits the shape — but only when opted in
-    # (CESCOIN_AUTOTUNE_FUSED=1): it won 1 of 264 keys in the r3 table,
-    # and its fresh large-slab compiles are the prime suspect for the
-    # r4 remote-compile wedges (two ~45-min compile-service stalls, both
-    # beginning at a fresh large-shape arm measurement). It remains
-    # reachable via xbsp_arm="fused" and its own test lane.
-    from caffe_escoin_tpu.kernels import sconv_fused
-    if (os.environ.get("CESCOIN_AUTOTUNE_FUSED")
-            and tuple(stride) == (1, 1) and tuple(dilation) == (1, 1)
-            and sconv_fused.supported(x, aligned, padding, policy)):
-        cands["fused"] = lambda y: sconv_fused.sconv(
-            y, aligned, padding=padding, relu=False, policy=policy)
     times = {}
     for arm, fn in cands.items():
         try:
             times[arm] = device_time(fn, x, iters=max(iters, 8),
                                      arg_sets=xsets)
-        except Exception:  # arm not executable for this shape: skip it
-            continue
+        except Exception as e:  # arm not executable for this shape
+            print(f"[autotune] arm '{arm}' failed for {tuple(x_shape)} "
+                  f"k{aligned.kernel_shape} cout{aligned.cout}: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
     return times
 
 
@@ -324,11 +317,11 @@ def calibrate_graph(time_fn: Callable[[], float], *,
     """Whole-graph validation of the per-layer autotuned arm assignment.
 
     Per-(shape, pattern) ISOLATED measurement keeps each layer's weight
-    blocks VMEM-warm, which flatters many-small-dots schedules; composed
-    through a real graph those picks can LOSE to the dense floor — the
-    captured GoogLeNet failure (r3: per-layer arms each measured as
-    winners, e2e 0.886x vs dense-bf16 while a forced-dense sparse graph
-    ran 1.01x). This is the graph-scope completion of the never-lose
+    blocks cache-warm, which flatters many-small-dots schedules; composed
+    through a real graph those picks can LOSE to the dense floor (a
+    GoogLeNet whose every per-layer arm measured as a winner ran slower
+    end to end than its forced-dense sparse graph). This is the
+    graph-scope completion of the never-lose
     floor, and of SURVEY §5's global-vs-per-layer conv_mode fix: the
     reference could only set conv_mode globally; here the per-layer choice
     is validated against — and can fall back to — the composed graph.
@@ -340,7 +333,7 @@ def calibrate_graph(time_fn: Callable[[], float], *,
     2. Time the all-dense assignment (the graph-scope dense floor).
     3. If the current assignment is within ``margin`` of the floor (i.e.
        not more than ``margin`` SLOWER — a tolerance, because whole-net
-       timings carry ~1-2% session noise and a borderline re-derivation
+       timings carry run-to-run noise and a borderline re-derivation
        from the floor would churn the table without a real win), keep it.
        Otherwise greedily re-enable each key's isolated winner —
        highest estimated gain first (from the isolated arm times when
@@ -353,7 +346,7 @@ def calibrate_graph(time_fn: Callable[[], float], *,
        ("net=<tag>|<key>", served inside `net_scope(tag)`) instead of
        overwriting the global per-(shape, pattern) table: a demotion
        caused by one net's composition must not force another net's
-       identical layer dense (ADVICE r4). Confirmed keys (arm unchanged)
+       identical layer dense. Confirmed keys (arm unchanged)
        stay global.
 
     Returns a report dict with the three timings and the final arms.

@@ -1,4 +1,4 @@
-"""Execution policy: the TPU-native replacement for `Caffe::conv_mode`.
+"""Execution policy: the replacement for `Caffe::conv_mode`.
 
 The reference selects the convolution algorithm through a *global* singleton
 enum settable only from the `test` CLI command, with hardcoded profitability
@@ -18,22 +18,21 @@ from typing import Optional, Tuple
 
 class ConvMode(enum.IntEnum):
     """Convolution execution modes (reference `Caffe::ConvMode`,
-    `include/caffe/common.hpp:112`). Same four capabilities, TPU meanings:
+    `include/caffe/common.hpp:112`). Same four capabilities:
 
     LOWERED_GEMM   — dense XLA convolution (`lax.conv_general_dilated`), the
-                     MXU-native dense baseline (reference: im2col + cuBLAS).
+                     dense baseline (reference: im2col + cuBLAS).
     LOWERED_SPARSE — im2col (patch extraction) + sparse weight SpMM
                      (reference: cuSPARSE csrmm2). ELL for unstructured CSR
-                     semantics, BSR for MXU block-skipping performance.
+                     semantics, BSR for block-skipping performance.
     SCONV          — direct sparse convolution, no materialized im2col:
-                     per-kernel-offset block-sparse shift-matmul Pallas kernel
-                     streaming the padded ifmap through VMEM (reference:
+                     per-kernel-offset block-sparse shifted dots over the
+                     padded ifmap, image by image (reference:
                      `caffe_gpu_sconv` custom kernels).
     SCONV_PAR      — batch-parallel direct sparse conv: one weight-block fetch
                      amortized over the whole batch (reference:
-                     `sconv_batch_tiled`, FMAP_BLOCK register blocking). On TPU
-                     this folds the batch dim into the kernel grid so weight
-                     blocks stay VMEM-resident across images.
+                     `sconv_batch_tiled`, FMAP_BLOCK register blocking): the
+                     batch folds into every dot's M dimension.
     """
 
     LOWERED_GEMM = 0
@@ -45,7 +44,7 @@ class ConvMode(enum.IntEnum):
 class SparseFormat(enum.Enum):
     CSR = "csr"  # interchange only
     ELL = "ell"  # unstructured, gather-FMA kernels
-    BSR = "bsr"  # block-structured, MXU block-skip kernels
+    BSR = "bsr"  # block-structured, block-skipping executors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +59,7 @@ class ExecutionPolicy:
 
     conv_mode: ConvMode = ConvMode.LOWERED_GEMM
     sparse_format: SparseFormat = SparseFormat.BSR
-    block_shape: Tuple[int, int] = (8, 128)  # (cin-block, cout-block) MXU tile
+    block_shape: Tuple[int, int] = (8, 128)  # (cin-block, cout-block) tile
     sparse_threshold: float = 0.5  # LOWERED_SPARSE profitability
     sconv_threshold: float = 0.5  # SCONV/SCONV_PAR profitability
     fuse_relu: bool = True  # fold layer's ReLU into the sparse kernel epilogue
@@ -70,24 +69,20 @@ class ExecutionPolicy:
     # compute_dtype so the whole net runs (and moves bytes) at that width —
     # the bf16 end-to-end inference deployment
     cast_back: bool = True
-    use_pallas: Optional[bool] = None  # None = auto (pallas on TPU backends)
-    interpret: bool = False  # run pallas kernels in interpreter mode (tests)
-    spmm_tile_m: int = 512  # pallas SpMM M-tile
-    # MXU multiply dtype inside the Pallas kernels (accumulation is always
-    # f32). "auto" = bf16 on real TPU, f32 under interpret — matching XLA's
-    # DEFAULT precision, which runs f32 convs/matmuls with bf16 multiplier
-    # passes on the MXU; a true-f32 sparse kernel would pay ~4-6x per FLOP
-    # against that dense baseline. Set "float32" to force full-precision
-    # multiplies (Precision.HIGHEST parity).
-    mxu_dtype: str = "auto"
+    # the Pallas SpMM kernel (kernels/bsc_pallas.py) for traced patterns:
+    # None = auto (on a GPU backend only)
+    use_pallas: Optional[bool] = None
+    # run the Pallas kernel in interpreter mode: CPU tests only; a GPU
+    # backend refuses it (the kernel compiles for the card there)
+    interpret: bool = False
     # XLA-native static block-sparse unroll (kernels/xla_block_sparse.py) as
-    # the primary sparse-conv executor; False forces the Pallas kernels.
+    # the primary sparse-conv executor; False forces the lowered SpMM path.
     use_xla_sparse: bool = True
     # XBSP formulation: "unroll" (per-block-column dot chains — wins on
     # compute-bound k>1 and reduce-1x1 shapes), "gathered" (single GEMM over
     # the union of live K-blocks, output written once — wins on
     # write-bound expand-1x1 shapes), or "auto" (per-shape heuristic from
-    # on-chip profiling; the reference's per-shape kernel dispatch,
+    # profiling; the reference's per-shape kernel dispatch,
     # `math_functions.cu:589-694`, reborn as a policy rule).
     xbsp_arm: str = "auto"
     # Measured per-(shape, pattern) arm selection with a dense never-lose
@@ -104,17 +99,19 @@ class ExecutionPolicy:
     # jnp executors remain the default CPU test target.
     native_cpu: bool = False
 
-    def resolved_mxu_dtype(self):
-        if self.mxu_dtype == "auto":
-            return "float32" if self.interpret else "bfloat16"
-        return self.mxu_dtype
-
     def pallas_enabled(self) -> bool:
-        if self.use_pallas is not None:
-            return self.use_pallas
+        """Whether traced patterns run the Pallas kernel: on a GPU backend,
+        or where a test asks for it (``use_pallas`` / ``interpret``)."""
         import jax
 
-        return jax.default_backend() != "cpu" or self.interpret
+        backend = jax.default_backend()
+        if self.interpret and backend == "gpu":
+            raise ValueError(
+                "ExecutionPolicy(interpret=True) is for CPU tests; on a GPU "
+                "backend the Pallas kernels compile for the card")
+        if self.use_pallas is not None:
+            return self.use_pallas
+        return backend == "gpu" or self.interpret
 
     def replace(self, **kw) -> "ExecutionPolicy":
         return dataclasses.replace(self, **kw)

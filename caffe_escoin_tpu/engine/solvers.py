@@ -46,7 +46,7 @@ class SolverConfig:
     weight_decay: float = 0.0
     regularization_type: str = "L2"  # "L1" | "group_lasso" (block-L1)
     # block shape for group_lasso regularization (matches the executor's
-    # BSC block granularity so the pressure shrinks whole MXU-skippable
+    # BSC block granularity so the pressure shrinks whole skippable
     # blocks — the SSL/group-lasso route to structured sparsity)
     group_block: tuple = (128, 128)
     delta: float = 1e-8  # eps for adaptive solvers
@@ -71,7 +71,7 @@ def group_lasso_grad(w, block, eps: float = 1e-12):
     reference's L1 `regularization_type` pruning lever
     (`caffe.proto:307-308`, `sgd_solver.cpp:144-206`). Blocks match the
     executor's BSC granularity so regularization-driven sparsity is
-    exactly the sparsity the MXU kernels can skip. Conv weights [kh, kw,
+    exactly the sparsity the block executors can skip. Conv weights [kh, kw,
     ci, co] block their per-offset (ci, co) planes (the direct-conv BSC
     structure); 2-D fc weights block directly; other ranks fall back to
     plain L2 direction (w)."""

@@ -1,30 +1,27 @@
-"""Pallas TPU block-sparse SpMM: dense (M, K) @ BSC (K, N) -> (M, N).
+"""Block-sparse SpMM through Pallas' Triton route: dense (M, K) @ BSC (K, N).
 
-The performance engine of the lowered sparse path — the TPU-native answer to
-cuSPARSE csrmm2 (`src/caffe/util/math_functions.cu:48-79`). Design (v2, after
-profiling on-chip):
+The executor for a sparsity pattern that is TRACED rather than closed over
+(aligned weights passed as jit arguments, e.g. `__graft_entry__.entry`).
+There the pattern is run-time data, so XLA cannot unroll it into static dots
+(kernels/xla_block_sparse.py) and this kernel walks it in one launch. It is
+the counterpart of cuSPARSE `csrmm2` on the lowered path
+(`src/caffe/util/math_functions.cu:48-79`), at block granularity.
 
-* Grid has ONE step per M-tile. Each step keeps the full K-width A-tile
-  (tile_m, Kp) in VMEM plus the *entire* padded block-sparse weight
-  (n_bcols, max_bw, bk, bn), which the pipeline fetches once and reuses across
-  every M-tile (constant index map). This mirrors the reference's
-  `sconv_batch_tiled` trick of amortizing one weight fetch across images
-  (`math_functions.cu:524-587`) — here one weight residency amortizes across
-  all M-tiles.
-* Inside the step, a static unroll over output block-columns with a
-  `fori_loop` over that column's nonzero K-blocks: each iteration does an
-  MXU matmul (tile_m, bk) @ (bk, bn) against a *dynamically lane-sliced*
-  A sub-tile selected by the scalar-prefetched ``block_row`` index. Compute
-  scales with nnz blocks; zero blocks cost nothing (the fori trip count is
-  ``bcol_nnz[j]``).
-* An earlier design put nonzero blocks in the grid's inner dimension
-  (megablox-style); per-grid-step overhead (~0.4-1.2us) capped it at ~20
-  TF/s vs XLA dense's 64 TF/s on the same chip. The in-kernel loop removes
-  that machinery from the per-block cost.
+Design, for one GPU thread block per output tile:
 
-VMEM budget: A-tile (tile_m*Kp*4) + weights (nnz_blocks*bk*bn*4) + out tile
-(tile_m*Np*4). `supported()`-style sizing is handled by the caller falling
-back to the jnp executor when K is huge; typical conv GEMM K <= 4608 fits.
+* The grid is (M tiles, output block-columns). Program (i, j) reads its own
+  ``bcol_nnz[j]`` and loops over column j's live K-blocks: for slot s it
+  loads the (tile_m, bk) slice of A at K-block ``block_row[j, s]`` and the
+  (bk, bn) weight block, and accumulates their `pl.dot` in float32. Zero
+  blocks cost nothing; no program carries state to another.
+* Rows past M are masked on load and store, so A and the output are never
+  padded or copied along M.
+* Triton pipelines the loop's loads over ``num_stages`` shared-memory
+  buffers; `_config` keeps the stages under the block's shared memory.
+* Float32 operands multiply in IEEE float32 unless the caller passes a
+  TF32 precision: the kernel never loosens a float32 product on its own.
+  Each weight block's product is then split into K chunks (``k_chunk``)
+  so the CUDA-core dot's operands fit in registers.
 """
 
 from __future__ import annotations
@@ -35,127 +32,119 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from caffe_escoin_tpu.sparse.formats import BSC
 
+# shared memory the pipelined loads may take: below the 227 KB a block can
+# use, leaving room for Triton's epilogue layout conversion
+_SMEM_BUDGET = 160 * 1024
+# Triton's dot needs every operand dimension >= 16
+_MIN_DOT_DIM = 16
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
 
 def pallas_supported(bsc: BSC) -> bool:
-    """Mosaic lowers dynamic lane slices only at 128-aligned offsets; a
-    single K-block degenerates to a static slice and is always fine."""
-    bk, _ = bsc.block_shape
-    return bk % 128 == 0 or bsc.n_brows == 1
+    """Triton loads power-of-two shapes only, and its dot needs each
+    dimension >= 16: both block dimensions must satisfy that."""
+    bk, bn = bsc.block_shape
+    return all(_pow2(d) and d >= _MIN_DOT_DIM for d in (bk, bn))
 
 
-def _make_kernel(group_n, bk, bn, tile_m, n_brows, out_dtype, mxu_dtype):
-    def kernel(row_ref, nnz_ref, a_ref, w_ref, out_ref):
-        g = pl.program_id(0)
-        for j in range(group_n):  # static unroll over the group's block-columns
-            jg = g * group_n + j
+def _config(m: int, bk: int, bn: int, itemsize: int, tile_m=None):
+    """(tile_m, k_chunk, num_warps, num_stages) for one call.
 
-            def body(s, acc):
-                if n_brows == 1:
-                    ablk = a_ref[:, 0:bk]  # static (see pallas_supported)
-                else:
-                    kblk = row_ref[jg, s]
-                    off = pl.multiple_of(kblk * bk, 128)
-                    ablk = a_ref[:, pl.ds(off, bk)]
-                return acc + jnp.dot(
-                    ablk.astype(mxu_dtype), w_ref[j, s],
-                    preferred_element_type=jnp.float32,
-                )
-
-            acc = lax.fori_loop(
-                0, nnz_ref[jg], body, jnp.zeros((tile_m, bn), jnp.float32),
-                unroll=False,
-            )
-            out_ref[:, j * bn : (j + 1) * bn] = acc.astype(out_dtype)
-
-    return kernel
+    bf16 operands: 64-row tiles, one tensor-core dot per weight block.
+    float32 operands multiply in IEEE float32 on the CUDA cores, where a
+    dot's operands live in registers: 32-row tiles and 16-deep K chunks
+    keep them from spilling (measured on an H100 at the ResNet-50 GEMM
+    views, see PERF.md)."""
+    if tile_m is None:
+        tile_m = 64 if itemsize <= 2 else 32
+    k_chunk = bk if itemsize <= 2 else _MIN_DOT_DIM
+    tile_m = max(_MIN_DOT_DIM, min(tile_m, pl.next_power_of_2(m)))
+    stage_bytes = (tile_m * bk + bk * bn) * itemsize
+    stages = max(1, min(3, _SMEM_BUDGET // stage_bytes))
+    return tile_m, k_chunk, 4, stages
 
 
-def _pad_to(x, mult, axis):
-    rem = (-x.shape[axis]) % mult
-    if rem == 0:
-        return x
-    pads = [(0, 0)] * x.ndim
-    pads[axis] = (0, rem)
-    return jnp.pad(x, pads)
+def _kernel(row_ref, nnz_ref, a_ref, w_ref, out_ref, *, m, tile_m, bk, bn,
+            k_chunk, precision):
+    i = pl.program_id(0)
+    j = pl.program_id(1)
+    rows = pl.ds(pl.multiple_of(i * tile_m, tile_m), tile_m)
+    row_ok = (i * tile_m + jnp.arange(tile_m) < m)[:, None]
+
+    def body(s, acc):
+        k0 = pl.multiple_of(row_ref[j, s] * bk, bk)
+        for c in range(0, bk, k_chunk):  # static: one dot per K chunk
+            a = plt.load(a_ref.at[rows, pl.ds(k0 + c, k_chunk)],
+                         mask=jnp.broadcast_to(row_ok, (tile_m, k_chunk)),
+                         other=0)
+            w = w_ref[j, s, pl.ds(c, k_chunk), :]
+            acc = acc + pl.dot(a, w, precision=precision)
+        return acc
+
+    acc = lax.fori_loop(0, nnz_ref[j], body,
+                        jnp.zeros((tile_m, bn), jnp.float32))
+    plt.store(out_ref.at[rows, pl.ds(pl.multiple_of(j * bn, bn), bn)],
+              acc.astype(out_ref.dtype),
+              mask=jnp.broadcast_to(row_ok, (tile_m, bn)))
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "shape", "block_shape", "tile_m", "interpret", "out_dtype_name",
-        "w_budget", "mxu_dtype",
-    ),
+    static_argnames=("shape", "block_shape", "tile_m", "interpret",
+                     "out_dtype_name", "precision"),
 )
-def _run(amat, blocks, block_row, bcol_nnz, *, shape, block_shape,
-         tile_m, interpret, out_dtype_name, w_budget, mxu_dtype):
+def _run(amat, blocks, block_row, bcol_nnz, *, shape, block_shape, tile_m,
+         interpret, out_dtype_name, precision):
     bk, bn = block_shape
     k_logical, n_logical = shape
     m = amat.shape[0]
-    # Weights cast to the MXU multiply dtype up front (tiny, reused across
-    # all M-tiles); the A-tile is cast *in-kernel* — a pre-cast pass over A
-    # would cost a full extra HBM round-trip, which is exactly what kills a
-    # bandwidth-bound 1x1 layer. Accumulation stays f32.
-    mxu = jnp.dtype(mxu_dtype)
-    blocks = blocks.astype(mxu)
-    # M is NOT padded to tile_m: pallas handles a ragged final tile (the
-    # out-of-range rows compute garbage that is never written back), so the
-    # output needs no over-allocation + slice-copy. Only sublane alignment
-    # (8) and the K blocking are physical requirements.
-    a = _pad_to(_pad_to(amat, 8, 0), bk, 1)
-    mp, kp = a.shape
     n_bcols, max_bw = blocks.shape[:2]
-    out_dtype = jnp.dtype(out_dtype_name)
-
-    # Column grouping keeps the resident weight slice under a VMEM budget
-    # (~4MB): within a group's grid column, M-tiles stream while the weight
-    # slice stays put (grid order g outer, i inner -> weight fetched once per
-    # group).
-    w_bytes = n_bcols * max_bw * bk * bn * blocks.dtype.itemsize
-    n_groups = min(n_bcols, max(1, -(-w_bytes // w_budget)))
-    while n_bcols % n_groups != 0:  # need equal groups (bounded by n_bcols)
-        n_groups += 1
-    group_n = n_bcols // n_groups
-
-    n_brows = -(-k_logical // bk)
-    kernel = _make_kernel(group_n, bk, bn, tile_m, n_brows, out_dtype, mxu)
+    kp = -(-k_logical // bk) * bk
+    if amat.shape[1] != kp:  # K tail: the last K-block reads zeros
+        amat = jnp.pad(amat, ((0, 0), (0, kp - amat.shape[1])))
+    # weights multiply in A's dtype (small, cast once); accumulation is f32
+    blocks = blocks.astype(amat.dtype)
+    tile_m, k_chunk, num_warps, num_stages = _config(
+        m, bk, bn, jnp.dtype(amat.dtype).itemsize, tile_m)
     out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,  # block_row, bcol_nnz
-            grid=(n_groups, -(-mp // tile_m)),
-            in_specs=[
-                pl.BlockSpec((tile_m, kp), lambda g, i, br, nz: (i, 0)),
-                pl.BlockSpec(
-                    (group_n, max_bw, bk, bn),
-                    lambda g, i, br, nz: (g, 0, 0, 0),
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (tile_m, group_n * bn), lambda g, i, br, nz: (i, g)
-            ),
-        ),
-        out_shape=jax.ShapeDtypeStruct((mp, n_bcols * bn), out_dtype),
+        functools.partial(_kernel, m=m, tile_m=tile_m, bk=bk, bn=bn,
+                          k_chunk=k_chunk, precision=precision),
+        grid=(pl.cdiv(m, tile_m), n_bcols),
+        out_shape=jax.ShapeDtypeStruct((m, n_bcols * bn),
+                                       jnp.dtype(out_dtype_name)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps,
+                                           num_stages=num_stages),
         interpret=interpret,
-        # let XLA fuse the (free) reshape/pad producers of A directly into
-        # the kernel's operand reads instead of materializing a staged copy
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            allow_input_fusion=[False, False, True, False]),
-    )(block_row, bcol_nnz, a, blocks)
-    return out[:m, :n_logical]
+        name="bsc_spmm",
+    )(block_row.astype(jnp.int32), bcol_nnz.astype(jnp.int32), amat, blocks)
+    return out if n_bcols * bn == n_logical else out[:, :n_logical]
 
 
-def bsc_spmm_pallas(amat, bsc: BSC, *, tile_m: int = 512, out_dtype=None,
-                    interpret: bool = False, w_budget: int = 4 * 1024 * 1024,
-                    mxu_dtype: str = "float32"):
-    """amat: (M, K) dense; bsc: (K, N). Returns (M, N)."""
+def bsc_spmm_pallas(amat, bsc: BSC, *, out_dtype=None, precision=None,
+                    interpret: bool = False, tile_m=None):
+    """amat: (M, K) dense; bsc: (K, N). Returns (M, N) in ``out_dtype``
+    (default amat's dtype).
+
+    ``precision`` is the product's `lax.Precision`. Float32 operands default
+    to HIGHEST (IEEE float32); pass DEFAULT or HIGH to allow TF32. For
+    bf16 operands it has no effect."""
     if amat.shape[1] != bsc.shape[0]:
         raise ValueError(f"amat cols {amat.shape[1]} != sparse K {bsc.shape[0]}")
+    if not pallas_supported(bsc):
+        raise ValueError(f"block shape {bsc.block_shape} outside the Triton "
+                         "route's constraints (powers of two, >= 16)")
     out_dtype = jnp.dtype(out_dtype or amat.dtype)
-    tile_m = min(tile_m, max(8, _pad_to(amat, 8, 0).shape[0]))
+    if precision is None:
+        precision = (lax.Precision.HIGHEST if amat.dtype == jnp.float32
+                     else lax.Precision.DEFAULT)
     return _run(
         amat,
         bsc.blocks,
@@ -166,6 +155,5 @@ def bsc_spmm_pallas(amat, bsc: BSC, *, tile_m: int = 512, out_dtype=None,
         tile_m=tile_m,
         interpret=interpret,
         out_dtype_name=out_dtype.name,
-        w_budget=w_budget,
-        mxu_dtype=mxu_dtype,
+        precision=lax.Precision(precision),
     )

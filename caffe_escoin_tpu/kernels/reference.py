@@ -8,7 +8,7 @@ against. These are vectorized per-kernel-offset shift+matmul loops (not
 per-element Python loops) so the tests run fast, but they use no conv
 primitive — `lax.conv_general_dilated` is itself validated against this.
 
-Canonical layouts (TPU-native): activations NHWC, conv weights HWIO.
+Canonical layouts: activations NHWC, conv weights HWIO.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def im2col_reference(x, kernel, *, stride=(1, 1), padding=(0, 0), dilation=(1, 1
 
     Column ordering is (kh, kw, c) fastest-last — the layout our lowered SpMM
     path uses (reference: `src/caffe/util/im2col.cpp`, adapted from
-    channel-major CHW to TPU channel-minor HWC).
+    channel-major CHW to channel-minor HWC).
     """
     x = jnp.asarray(x)
     n, h, wd, c = x.shape

@@ -2,20 +2,19 @@
 
 The reference's counterpart is cuSPARSE `csrmm2` for the lowered path
 (`src/caffe/util/math_functions.cu:48-79` caffe_gpu_sparse_csrmm) and MKL
-`mkl_scsrmm` on CPU (`src/caffe/util/math_functions.cpp:36-75`). There is no
-cuSPARSE on TPU; instead:
+`mkl_scsrmm` on CPU (`src/caffe/util/math_functions.cpp:36-75`). Here:
 
 * ``ell_spmm`` — unstructured sparsity. A fixed-trip-count scan over padded
-  row slots; each step is a full-width row gather + FMA on the VPU. This is
-  exactly the reference GPU kernel's per-nonzero gather-FMA loop
+  row slots; each step is a full-width row gather + FMA. This is the
+  reference GPU kernel's per-nonzero gather-FMA loop
   (`math_functions.cu:298-308`) restructured so every step is a *vectorized*
-  (rows, N) operation instead of a per-thread scalar — the TPU has no per-lane
-  gather, so the gather moves to the row (sublane-block) granularity.
+  (rows, N) operation instead of a per-thread scalar.
 * ``bsr_spmm`` — block-structured sparsity. A scan over padded block slots;
-  each step is a batched (bm, bk) @ (bk, N) matmul on the MXU. Zero blocks are
-  never touched: compute scales with nnz_blocks/max_bw per row, and the
-  Pallas version (kernels/bsr_pallas.py) removes even the padding waste via
-  scalar-prefetch block indexing.
+  each step is a batched (bm, bk) @ (bk, N) matmul. Zero blocks are never
+  touched: compute scales with nnz_blocks/max_bw per row.
+* ``bsc_spmm`` — the dense x BSC orientation of the same scan; the Pallas
+  kernel (kernels/bsc_pallas.py) walks the pattern without the padding
+  slots or the per-column copies of A (``bsc_spmm_traced`` picks).
 
 Both are jit-compatible (static shapes, lax control flow) and differentiable
 w.r.t. the dense operand.
@@ -84,7 +83,7 @@ def bsc_spmm(amat, bsc: BSC, *, preferred_element_type=jnp.float32):
 
     The conv lowered path's natural orientation: amat = im2col patches,
     bsc = GEMM-view weight. A scan over padded block slots; each step gathers
-    one K-block of A per output block-column and runs a batched MXU matmul.
+    one K-block of A per output block-column and runs a batched matmul.
     """
     bk, bn = bsc.block_shape
     m = amat.shape[0]
@@ -105,6 +104,20 @@ def bsc_spmm(amat, bsc: BSC, *, preferred_element_type=jnp.float32):
 
     out = lax.fori_loop(1, bsc.max_bw, lambda s, acc: acc + term(s), term(0))
     return out.reshape(m, bsc.n_bcols * bn)[:, : bsc.shape[1]]
+
+
+def bsc_spmm_traced(amat, bsc: BSC, policy=None):
+    """Dense x BSC for a pattern known only at run time: the Pallas kernel
+    (kernels/bsc_pallas.py) where the policy enables it and the block shape
+    fits its route, else `bsc_spmm`."""
+    from caffe_escoin_tpu.engine.context import ExecutionPolicy
+    from caffe_escoin_tpu.kernels import bsc_pallas
+
+    policy = policy or ExecutionPolicy()
+    if policy.pallas_enabled() and bsc_pallas.pallas_supported(bsc):
+        return bsc_pallas.bsc_spmm_pallas(amat, bsc,
+                                          interpret=policy.interpret)
+    return bsc_spmm(amat, bsc)
 
 
 def spmm(sparse, bmat, **kw):

@@ -12,17 +12,14 @@ block:
 
 This is the direct-sparse-conv decomposition by kernel offset (the same
 structure the reference's stretched CSR index encodes,
-`math_functions.cu:706-727`) expressed entirely in XLA ops. On-chip
-profiling showed it beating the hand-written Pallas pipeline on EVERY
-ResNet-50 layer shape: XLA streams dot operands from HBM at ~1.65 TB/s and
-fuses the pad/shift/slice into the operand read, while Pallas pipeline
-block-DMAs cap at ~730 GB/s on this hardware. Compute still scales with the
-number of live blocks — zero blocks are skipped at trace time, so at 90%
-block sparsity the MXU does ~10% of the dense work.
+`math_functions.cu:706-727`) expressed entirely in XLA ops: XLA fuses the
+pad/shift/slice into each dot's operand read and picks the dot kernels.
+Compute scales with the number of live blocks — zero blocks are skipped at
+trace time, so at 90% block sparsity the dots do ~10% of the dense work.
 
-"Don't hand-schedule what the compiler already does": the Pallas kernels
-(kernels/sconv_fused.py) remain as an alternate arm (policy.use_xla_sparse
-= False) and as the baseline this path is validated against.
+"Don't hand-schedule what the compiler already does": a traced pattern,
+which cannot be unrolled, falls back to im2col + the Pallas SpMM kernel
+(kernels/bsc_pallas.py; policy.use_xla_sparse = False forces that path).
 
 Requires the BSC pattern to be concrete at trace time (host numpy — true
 whenever the aligned weight is closed over by the jitted function, the
@@ -71,16 +68,17 @@ def best_arm(aligned: AlignedConvWeight, policy, *, x_shape=None,
     MEASURED: each candidate arm (including the dense bf16 conv — the
     never-lose floor) is device-timed once per (shape, pattern) and cached
     (engine/autotune.py). Otherwise the heuristic below applies, with
-    rules from on-chip profiling of ResNet-50's stride-1 shapes at 70-95%
-    block sparsity (the reference dispatches per shape among its 8 CUDA
-    kernels the same hardcoded way, `math_functions.cu:589-694`):
+    rules from profiling ResNet-50's stride-1 shapes at 70-95% block
+    sparsity on an earlier accelerator, still to be re-derived on this
+    one (the reference dispatches per shape among its 8 CUDA kernels the
+    same hardcoded way, `math_functions.cu:589-694`):
 
     * k>1 and reduce-1x1 shapes are COMPUTE-bound on the dense baseline —
-      the per-column unroll's trace-time block skipping wins (2-3x).
+      the per-column unroll's trace-time block skipping wins.
     * expand-1x1 shapes (cout > cin) are OUTPUT-WRITE-bound — both arms
       write the same bytes, so the single-GEMM gathered form (one output
       write, fewer input reads) is the ceiling; when the union of live
-      K-blocks covers ALL of K and cin fills the 128-lane tile, XLA's own
+      K-blocks covers ALL of K and cin fills a 128-wide block, XLA's own
       1x1-conv lowering beats any dot_general formulation — fall back to
       dense conv on the pruned weight (the reference's density fallback,
       `base_conv_layer.cpp:752`, driven by block structure instead of a
@@ -90,17 +88,16 @@ def best_arm(aligned: AlignedConvWeight, policy, *, x_shape=None,
     if arm != "auto":
         return arm
     # BLOCK-density profitability (the reference's element-density
-    # fallback, `base_conv_layer.cpp:752`, at the granularity the MXU
-    # skips): a weight that is element-sparse but block-dense (e.g. 90%
-    # UNSTRUCTURED pruning -> ~every 128x128 block live) would make the
-    # unroll do ~dense FLOPs in a worse schedule than XLA's conv. This
-    # gate runs BEFORE autotune: per-layer isolated measurement keeps the
-    # weight blocks VMEM-warm, which flatters a many-small-dots schedule
-    # that re-reads operands — measured r3 on-chip: unstructured-90%
-    # ResNet-50 autotuned to unroll/gathered per layer yet ran 0.43x vs
-    # dense-bf16 END-TO-END, while the dense fallback is ~1.0x by
-    # construction. At >=50% live blocks no dot-chain schedule can beat
-    # one dense conv on cold HBM, so don't let warm microbenchmarks vote.
+    # fallback, `base_conv_layer.cpp:752`, at the granularity the
+    # executors skip): a weight that is element-sparse but block-dense
+    # (e.g. 90% UNSTRUCTURED pruning -> ~every 128x128 block live) would
+    # make the unroll do ~dense FLOPs in a worse schedule than XLA's conv.
+    # This gate runs BEFORE autotune: per-layer isolated measurement keeps
+    # the weight blocks cache-warm, which flatters a many-small-dots
+    # schedule that re-reads operands and composes to an end-to-end loss,
+    # while the dense fallback matches dense by construction. At >=50%
+    # live blocks no dot-chain schedule can beat one dense conv on cold
+    # device memory, so don't let warm microbenchmarks vote.
     if aligned.block_density > 0.5:
         return "dense"
     if getattr(policy, "autotune", False) and x_shape is not None:
@@ -110,16 +107,14 @@ def best_arm(aligned: AlignedConvWeight, policy, *, x_shape=None,
                                   padding, dilation)
         if got is not None:
             return got
-    # Heuristic-path never-lose floor (r5, the r4 VERDICT's Weak #4): the
-    # hand rules below are calibrated on >=80% block sparsity; at ~30%
-    # live blocks they composed to a measured e2e LOSS (ResNet-50 at 70%
-    # sparsity: 0.847x vs dense-bf16 with autotune:false, BENCH_SWEEP
-    # r4) because nothing below measures. Without measurement the only
-    # safe choice in that regime is the dense conv (~1.0x by
-    # construction) — the reference's density thresholds
-    # (`base_conv_layer.cpp:548,727,752`) existed for exactly this.
-    # Autotune (the deployment default) measures instead of gating: the
-    # 70%-sparsity conv bucket autotunes to 1.31x.
+    # Heuristic-path never-lose floor: the hand rules below are
+    # calibrated on >=80% block sparsity; at ~30% live blocks they
+    # composed to an end-to-end loss against dense bf16, because nothing
+    # below measures. Without measurement the only safe choice in that
+    # regime is the dense conv (dense speed by construction) — the
+    # reference's density thresholds (`base_conv_layer.cpp:548,727,752`)
+    # existed for exactly this. Autotune (the deployment default)
+    # measures instead of gating.
     if aligned.block_density >= 0.25:
         return "dense"
     kh, kw = aligned.kernel_shape
@@ -192,17 +187,16 @@ def conv_gathered(x, aligned: AlignedConvWeight, *, stride=(1, 1),
     cin-block) K-blocks across all output block-columns, concatenate only
     those shifted ifmap slices (the im2col restricted to live blocks —
     the reference's LOWERED_SPARSE path at block granularity,
-    `base_conv_layer.cpp:727-736`), and run a single MXU GEMM against the
+    `base_conv_layer.cpp:727-736`), and run a single GEMM against the
     union-packed weight (rows for blocks dead in a given column are zero).
 
     vs the per-column unroll (`conv`): the output is written exactly ONCE
     (the unroll writes each column's accumulator and then concatenates —
     2x output bytes), and the GEMM's K dimension is U*bk instead of bk,
-    which the MXU pipelines far better. The price is compute on the
+    which a matrix unit pipelines far better. The price is compute on the
     zero-padding inside the union (union_size x Cout instead of
-    sum-of-live-per-column) — cheap while the layer is bandwidth-bound,
-    which profiling shows all ResNet-50 stride-1 shapes are. The dispatcher
-    (ops/conv.py) picks per layer via a byte/FLOP cost model.
+    sum-of-live-per-column) — cheap while the layer is bandwidth-bound.
+    The dispatcher (ops/conv.py) picks per layer (`best_arm`).
     """
     kh, kw = aligned.kernel_shape
     bk, bn = aligned.bsc.block_shape
@@ -310,20 +304,20 @@ def conv_gathered(x, aligned: AlignedConvWeight, *, stride=(1, 1),
 def conv_gathered_cols(x, aligned: AlignedConvWeight, *, stride=(1, 1),
                        padding=(0, 0), dilation=(1, 1), relu=False,
                        residual=None):
-    """Per-column gathered GEMM ("XBSP-GC", r3): for each output
+    """Per-column gathered GEMM ("XBSP-GC"): for each output
     block-column, concatenate ONLY that column's live K-block slices and
     run ONE dot [M, s_j*bk] x [s_j*bk, bn].
 
     Middle ground between the per-block unroll (`conv`: one dot per live
     block — DOT-COUNT-bound on small feature maps, e.g. 7x7 512->512 k3 at
-    90% runs ~14 tiny M=784 dots and sits 2.4x above its bytes bound) and
-    the global-union single GEMM (`conv_gathered`: K = union*bk, wasteful
-    compute when columns share few K-blocks, as in k>1 patterns). Dot
+    90% runs ~14 tiny M=784 dots) and the global-union single GEMM
+    (`conv_gathered`: K = union*bk, wasteful compute when columns share
+    few K-blocks, as in k>1 patterns). Dot
     count drops from live_blocks to ncols; identical slab slices across
     columns are CSE'd by XLA so each (offset, cin-block) activation
     materializes once. Per-column f32 epilogue before the bf16 concat, as
-    in `conv`. The autotuner (engine/autotune.py) picks it where measured
-    fastest."""
+    in `conv`. The autotuner (engine/autotune.py) picks it where it is
+    measured fastest."""
     kh, kw = aligned.kernel_shape
     bk, bn = aligned.bsc.block_shape
     n_cin_b = aligned.cin_pad // bk
@@ -399,16 +393,14 @@ def conv_gathered_cols(x, aligned: AlignedConvWeight, *, stride=(1, 1),
 def _nopad_slab(x, khi, kwi, ph, pw, sh, sw, ho, wo, cb, bk, c):
     """Shifted slab WITHOUT materializing a padded ifmap.
 
-    Hypothesis tested r4 on-chip: `jnp.pad(x)` consumed by several
-    shifted-slice dots looked like a full extra ifmap read+write, so this
-    form slices only the valid interior of the UNPADDED x and zero-pads
-    the dot RESULT instead. The A/B MEASURED THE OPPOSITE on this TPU:
-    the padded-ifmap form wins (56x56 64->64 k3: 37.9us padded vs 45.8us
-    pad-free; 7x7 512x512 k3: 6.7 vs 7.8) — XLA reads the materialized
-    padded buffer with aligned tiles, while the valid-interior slices
-    force unaligned strided operand reads that cost more than the pad
-    copy saves. Kept as CESCOIN_XBSP_NOPAD=1 for measurement and for
-    hardware where the trade flips; the default is the padded form.
+    Hypothesis: `jnp.pad(x)` consumed by several shifted-slice dots looks
+    like a full extra ifmap read+write, so this form slices only the valid
+    interior of the UNPADDED x and zero-pads the dot RESULT instead. On an
+    earlier accelerator the padded-ifmap form won (XLA read the
+    materialized padded buffer with aligned tiles, while the
+    valid-interior slices forced unaligned strided operand reads). Kept as
+    CESCOIN_XBSP_NOPAD=1 for measurement on hardware where the trade may
+    flip; the default is the padded form.
 
     Returns (slab_or_None, ((top, bottom), (left, right)) output pad);
     None when the offset reads only halo (contribution is zero)."""
@@ -436,9 +428,8 @@ def conv(x, aligned: AlignedConvWeight, *, stride=(1, 1), padding=(0, 0),
     ``residual`` [N,Ho,Wo,Cout] is a fused Eltwise-sum input added per
     block-column in f32 before the ReLU/cast (nn/fuse.py pass B).
 
-    Spatial padding materializes a padded ifmap (measured faster on this
-    TPU); CESCOIN_XBSP_NOPAD=1 switches to the pad-free valid-slice form
-    (see _nopad_slab for the measured A/B)."""
+    Spatial padding materializes a padded ifmap; CESCOIN_XBSP_NOPAD=1
+    switches to the pad-free valid-slice form (see _nopad_slab)."""
     kh, kw = aligned.kernel_shape
     bk, bn = aligned.bsc.block_shape
     n_cin_b = aligned.cin_pad // bk

@@ -7,7 +7,7 @@ layers whose Forward pops a prefetched batch from a background thread
 (`BasePrefetchingDataLayer`, base_data_layer.hpp:52-78). Here they are the
 same: host-side IO layers that produce numpy/jnp batches at apply() time.
 
-They are *eager* layers — host IO cannot live under jit. The TPU-idiomatic
+They are *eager* layers — host IO cannot live under jit. The idiomatic
 path for production input is `data.pipeline.PrefetchLoader` feeding `Input`
 blobs of a jitted Net.apply; these layers exist for API parity (small jobs,
 tests, tooling like `compute_image_mean`) and reuse the same PrefetchLoader
@@ -85,8 +85,8 @@ class _PrefetchingDataLayer(Layer):
 @register_layer("Data")
 class DataLayer(_PrefetchingDataLayer):
     """Record-database-backed data layer (data_layer.cpp). Backends:
-    `.cerec` (the TPU build's native record database, data/datasets.py +
-    csrc/recordio.cc) and — r5 — the reference's own LMDB databases
+    `.cerec` (this framework's native record database, data/datasets.py +
+    csrc/recordio.cc) and the reference's own LMDB databases
     (`src/caffe/util/db_lmdb.cpp`), read in place by the dependency-free
     B+tree walker in data/lmdb_io.py (Datum records, `backend: "lmdb"` in
     prototxt `data_param` or a `.mdb`/`data.mdb` source path). Same role

@@ -1,13 +1,11 @@
 """Inference-time graph fusion: fold BN/Scale/ReLU/residual into convs.
 
-The round-2 whole-net measurement showed the per-layer sparse-conv win
-(2.3x) evaporating end-to-end (1.0x): Caffe-style nets run Conv ->
-BatchNorm -> Scale -> ReLU as FOUR layers (the reference executes them as
-four kernel launches too, `models/resnet/test_sconv.prototxt`), so the conv
-epilogue never fuses, every activation makes three extra HBM round trips,
-and the "other" bucket dwarfs conv. The reference's conv bucket dominated
-its e2e because cuDNN-era BN was cheap relative to its convs; on TPU the
-convs are fast enough that the elementwise passes dominate instead.
+Without it a per-layer sparse-conv win evaporates end-to-end: Caffe-style
+nets run Conv -> BatchNorm -> Scale -> ReLU as FOUR layers (the reference
+executes them as four kernel launches too,
+`models/resnet/test_sconv.prototxt`), so the conv epilogue never fuses,
+every activation makes three extra device-memory round trips, and the
+"other" bucket dwarfs conv once sparsity makes the convs fast.
 
 This pass rewrites the graph for inference (the analogue of the
 weight-folding every production deployment of a Caffe model performs, and
@@ -270,12 +268,11 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
     """W-pair packed-layout pass (ops/wpack.py): route narrow-channel
     towers through full-lane packed execution.
 
-    TPU tiled layouts physically pad the channel (lane) dimension to 128,
-    so every HBM byte of a C<128 activation costs 128/C real bytes —
-    measured r5: the entire ResNet-50 56x56/C=64 tower sits at exactly 2x
-    its logical-traffic bound regardless of executor (logs/exp_k3_r5).
-    This pass finds maximal subgraphs where r adjacent W-pixels can ride
-    the unused lanes, with pack/unpack folded into the boundary layers as
+    Built for an accelerator whose tiled layouts pad the channel (lane)
+    dimension to 128, where every device-memory byte of a C<128
+    activation costs 128/C real bytes; whether it pays on the GPU is an
+    open measurement (ROADMAP design item 2). This pass finds maximal
+    subgraphs where r adjacent W-pixels can ride the unused lanes, with pack/unpack folded into the boundary layers as
     pure conv/pool reparametrizations so no retile pass ever materializes:
 
     * seeds: interior 4-D blobs with pack_factor(C, W) > 1;
@@ -293,8 +290,7 @@ def pack_narrow_chains(net: Net, *, lanes: int = 128) -> Net:
     Runs AFTER `fuse_inference` (it keys on fuse_add residual bottoms).
     Params are untouched — layers repack their logical weights at
     align/apply time — so checkpoints and exports stay in the public
-    layout. Measured effect (chip, b32): 56x56 64->64 k3 77us -> 38us;
-    the packed entry 1x1 112 -> 101us (logs/exp_wpack_r5.jsonl).
+    layout.
 
     No reference counterpart: GPU gathers are per-lane, so the reference
     never needed a layout pass; the closest analogue is its model-load
@@ -485,13 +481,10 @@ def fold_stem_s2d(net: Net, params: Dict[str, Any],
     becomes the packed kernel; `ConvolutionLayer.apply` inserts the input
     transform. Exact by construction (tests/test_s2d.py).
 
-    Why: the r5 GoogLeNet op profile measured conv1/7x7_s2 at 289us
-    composed (26% of the whole sparse e2e, b16) against a ~20us MXU
-    bound — a cin=3 conv occupies 3/128 MXU lanes per tap. The s2d form
-    quadruples the per-tap contraction depth and quarters the window
-    iteration count (measured 1.24x on the isolated gln stem,
-    logs/r5_s2d.jsonl); it is applied per-model where the COMPOSED
-    measurement wins (bench.py --s2d / --no-s2d), the same
+    Why: a cin=3 conv uses 3 of a matrix unit's 128-wide contraction per
+    tap. The s2d form quadruples the per-tap contraction depth and
+    quarters the window iteration count; it is applied per-model where
+    the COMPOSED measurement wins (bench.py --s2d / --no-s2d), the same
     measured-acceptance rule as every other executor choice here.
 
     Runs after `fuse_inference` (needs folded dense weights), before
@@ -546,3 +539,14 @@ def fold_stem_s2d(net: Net, params: Dict[str, Any],
     if hasattr(net, "blob_shapes"):
         out.blob_shapes = dict(net.blob_shapes)
     return out, new_params
+
+
+def deploy_sparse(net: Net, pruned: Dict[str, Any], *, pack: bool = True):
+    """The sparse inference deployment of an init()-ed net and its pruned
+    params: fold BN/Scale and fuse epilogues (`fuse_inference`), optionally
+    route narrow towers through the W-pair layout (`pack_narrow_chains`),
+    then sparse-compile the weights. Returns (fused_net, aligned_params)."""
+    fnet, fparams = fuse_inference(net, pruned, state=net.state0)
+    if pack:
+        fnet = pack_narrow_chains(fnet)
+    return fnet, fnet.weight_align(fparams)

@@ -120,7 +120,7 @@ class ConvolutionLayer(Layer):
             # sparse-compile the W-PACKED reparametrization (ops/wpack.py):
             # the aligned BSC pattern is the packed weight's own zero
             # structure, so the XBSP executors run the full-lane problem
-            # natively (measured 2x on the 56x56 c64 k3 family)
+            # natively
             from caffe_escoin_tpu.ops import wpack as _wpack
 
             p = self.p
@@ -240,7 +240,7 @@ class ConvolutionReLULayer(ConvolutionLayer):
 @register_layer("EscConvolution")
 class EscConvolutionLayer(ConvolutionLayer):
     """The reference's dense-baseline conv (esc_conv_layer.cu pins cuDNN
-    IMPLICIT_GEMM). On TPU the pinned dense baseline is XLA's conv; this
+    IMPLICIT_GEMM). Here the pinned dense baseline is XLA's conv; this
     subclass forces LOWERED_GEMM regardless of net policy."""
 
     def __init__(self, spec, policy):
@@ -292,8 +292,8 @@ class InnerProductLayer(Layer):
             # block-density gate, mirroring best_arm's ordering in the conv
             # dispatcher: --xbsp-arm dense forces the dense matmul, any
             # forced sparse arm exercises the sparse path even on
-            # block-dense weights (r3 advisor: the gate made conv and fc
-            # forced-arm semantics inconsistent)
+            # block-dense weights (so conv and fc forced-arm semantics
+            # agree)
             forced = getattr(self.policy, "xbsp_arm", "auto")
             if forced != "auto":
                 use_sparse = (forced != "dense"

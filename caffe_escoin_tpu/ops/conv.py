@@ -1,19 +1,18 @@
 """Convolution with runtime-mode dispatch.
 
-The TPU counterpart of `BaseConvolutionLayer`'s forward paths
+The counterpart of `BaseConvolutionLayer`'s forward paths
 (`src/caffe/layers/base_conv_layer.cpp:532-848`) and the per-mode branch in
 `ConvolutionLayer::Forward` (`src/caffe/layers/conv_layer.cpp:24-63`,
 `conv_layer.cu:7-40`):
 
-* LOWERED_GEMM   -> `lax.conv_general_dilated` (XLA's MXU conv; the analogue
+* LOWERED_GEMM   -> `lax.conv_general_dilated` (XLA's conv; the analogue
                     of im2col+cuBLAS, but fused — XLA never materializes cols).
 * LOWERED_SPARSE -> im2col + SpMM on the sparse GEMM-view weight (BSC block
                     kernel, or ELL gather kernel for unstructured).
-* SCONV          -> direct sparse convolution (Pallas; no materialized
-                    im2col).  Falls back to LOWERED_SPARSE where the Pallas
-                    kernel's constraints don't hold.
-* SCONV_PAR      -> batch-parallel direct sparse conv (batch folded into the
-                    Pallas grid).
+* SCONV          -> direct sparse convolution: the XBSP executors
+                    (kernels/xla_block_sparse.py) when the pattern is
+                    concrete, image by image; LOWERED_SPARSE when it is traced.
+* SCONV_PAR      -> the same with the whole batch in every dot's M dimension.
 
 Profitability fallback mirrors the reference's density thresholds
 (`base_conv_layer.cpp:548,727,752`) but is policy-configurable: a layer whose
@@ -64,13 +63,6 @@ def im2col(x, kernel, *, stride, padding, dilation):
     return jnp.concatenate(cols, axis=-1), (ho, wo)
 
 
-def _bsc_pallas_ok(bsc, policy) -> bool:
-    from caffe_escoin_tpu.kernels.bsc_pallas import pallas_supported
-
-    # interpreter mode has no Mosaic alignment constraints
-    return policy.interpret or pallas_supported(bsc)
-
-
 def _epilogue(out, bias, relu, residual=None):
     if bias is not None:
         out = out + bias
@@ -102,7 +94,7 @@ def convnd_dense(x, w, bias=None, *, stride=None, padding=None,
                  dilation=None, groups=1, relu=False):
     """Dense N-D convolution, any spatial rank (1-D/3-D/...).
 
-    The TPU analogue of the reference's `im2col_nd_*` dense path
+    The analogue of the reference's `im2col_nd_*` dense path
     (`src/caffe/util/im2col.cpp:141+`, exercised by the 3-D cases of
     `src/caffe/test/test_convolution_layer.cpp`): XLA's conv handles N
     spatial dims natively, no materialized columns. x: [N, *S, Cin],
@@ -150,16 +142,8 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
     elif xla_block_sparse.spmm_supported(aligned.bsc, policy):
         # concrete pattern: same static block unroll the FC fast path uses
         out2d = xla_block_sparse.spmm(cols2d, aligned.bsc)
-    elif policy.pallas_enabled() and _bsc_pallas_ok(aligned.bsc, policy):
-        from caffe_escoin_tpu.kernels.bsc_pallas import bsc_spmm_pallas
-
-        out2d = bsc_spmm_pallas(
-            cols2d, aligned.bsc, tile_m=policy.spmm_tile_m,
-            interpret=policy.interpret,
-            mxu_dtype=policy.resolved_mxu_dtype(),
-        )
     else:
-        out2d = spmm_kernels.bsc_spmm(cols2d, aligned.bsc)
+        out2d = spmm_kernels.bsc_spmm_traced(cols2d, aligned.bsc, policy)
     out = out2d.reshape(n, ho, wo, aligned.cout)
     return _epilogue(out, aligned.bias, relu, residual)
 
@@ -167,20 +151,18 @@ def conv2d_lowered_sparse(x, aligned: AlignedConvWeight, *, stride, padding,
 def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                  relu, policy: ExecutionPolicy, batch_parallel: bool,
                  residual=None):
-    """Direct sparse convolution (Pallas fast path).
+    """Direct sparse convolution.
 
-    Constraints of the Pallas kernel (mirroring the reference's tuned-kernel
-    preconditions, `math_functions.cu:613-668`): unit stride, no dilation.
-    Otherwise falls back to the lowered sparse path, as the reference falls
-    back to `sconv_dilation`/gemm.
+    A concrete pattern runs on the XBSP executors (any stride, dilation and
+    groups); a traced one falls back to the lowered sparse path, as the
+    reference falls back from its tuned kernels
+    (`math_functions.cu:613-668`) to `sconv_dilation`/gemm.
     """
-    from caffe_escoin_tpu.kernels import (sconv_fused, sconv_pallas,
-                                          xla_block_sparse)
+    from caffe_escoin_tpu.kernels import xla_block_sparse
 
-    # Non-unit stride: STRIDED slice reads are catastrophic on this hardware
-    # (measured: 1x1/s2 via strided XBSP operands runs 18x slower than dense
-    # conv — every dot re-reads the ifmap through a stride-2 DMA pattern).
-    # For 1x1 the stride commutes with the conv: subsample ONCE (a single
+    # Non-unit stride: strided XBSP operands make every dot re-read the
+    # ifmap through a strided access pattern. For 1x1 the stride commutes
+    # with the conv: subsample ONCE (a single
     # strided relayout) and run the stride-1 sparse path on the quarter-size
     # ifmap. For k>1 fall back to dense conv, which handles striding in its
     # native tiling — the reference's tuned kernels were unit-stride too
@@ -201,10 +183,8 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                 x, aligned.dense.astype(x.dtype), aligned.bias, stride=stride,
                 padding=padding, dilation=dilation, groups=aligned.groups,
                 relu=relu, residual=residual).astype(x.dtype)
-        # use_xla_sparse=False (the forced Pallas/lowered benchmark arm):
-        # keep the sparse path alive for strided k>1 via im2col+SpMM
-        # (ADVICE r2 — the dense early-return hid this arm from strided
-        # layers)
+        # use_xla_sparse=False (the forced lowered arm): keep the sparse
+        # path alive for strided k>1 via im2col+SpMM
         return conv2d_lowered_sparse(
             x, aligned, stride=stride, padding=padding, dilation=dilation,
             relu=relu, policy=policy, residual=residual)
@@ -253,12 +233,11 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                         out = jnp.maximum(out, 0.0)
                 return out.astype(x.dtype)
 
-    # Primary arm: the XLA-native static block unroll (XBSP). Beats the
-    # hand-written Pallas pipelines on every profiled ResNet-50 shape (XLA
-    # streams dot operands at ~1.65 TB/s vs ~730 GB/s pallas block DMA on
-    # this hardware) and handles stride/dilation/groups uniformly. Needs
-    # the sparsity pattern concrete at trace time (aligned weights closed
-    # over — the standard inference deployment).
+    # Primary arm: the XLA-native static block unroll (XBSP). XLA fuses
+    # the pad/shift/slice into each dot's operand read, and the arm handles
+    # stride/dilation/groups uniformly. Needs the sparsity pattern concrete
+    # at trace time (aligned weights closed over — the standard inference
+    # deployment).
     if xla_block_sparse.supported(aligned, policy):
         arm = xla_block_sparse.best_arm(
             aligned, policy, x_shape=x.shape, stride=stride,
@@ -272,19 +251,6 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                 stride=stride, padding=padding, dilation=dilation,
                 groups=aligned.groups, relu=relu,
                 residual=residual).astype(x.dtype)
-        if (arm == "fused" and stride == (1, 1) and dilation == (1, 1)
-                and sconv_fused.supported(x, aligned, padding, policy)):
-            # autotuned winner: the Pallas fused-slab kernel (no residual
-            # input — apply the residual epilogue outside; XLA fuses it
-            # into one elementwise pass)
-            out = sconv_fused.sconv(
-                x, aligned, padding=padding,
-                relu=relu and residual is None, policy=policy)
-            if residual is not None:
-                out = out + residual.astype(out.dtype)
-                if relu:
-                    out = jnp.maximum(out, 0.0)
-            return out
         conv_fn = {"gathered": xla_block_sparse.conv_gathered,
                    "gathered_cols": xla_block_sparse.conv_gathered_cols,
                    }.get(arm, xla_block_sparse.conv)
@@ -311,74 +277,11 @@ def conv2d_sconv(x, aligned: AlignedConvWeight, *, stride, padding, dilation,
                 (x, residual))
         return jax.lax.map(lambda img: _xbsp(img[None], None)[0], x)
 
-    # Remaining arms are Pallas kernels without a residual epilogue input:
-    # run them pre-activation and apply the fused add + ReLU outside (XLA
-    # fuses the tail into one elementwise pass).
-    if residual is not None:
-        out = conv2d_sconv(
-            x, aligned, stride=stride, padding=padding, dilation=dilation,
-            relu=False, policy=policy, batch_parallel=batch_parallel)
-        out = out + residual.astype(out.dtype)
-        if relu:
-            out = jnp.maximum(out, 0.0)
-        return out
-
-    # Fused-slab direct kernel (v3): native NHWC in/out, activation read
-    # once, zero XLA copies around the custom call. Preferred whenever its
-    # VMEM budget admits the shape (profiling showed the v2 paths spending
-    # 2-3x kernel time in XLA reshape/pad/staging copies).
-    if (
-        stride == (1, 1)
-        and dilation == (1, 1)
-        and aligned.bsc is not None
-        and sconv_fused.supported(x, aligned, padding, policy)
-    ):
-        return sconv_fused.sconv(x, aligned, padding=padding, relu=relu,
-                                 policy=policy)
-
-    # 1x1 convolutions ARE the sparse matmul: no spatial structure, so the
-    # whole batch folds into the SpMM's M dimension (N*Ho*Wo rows) — far
-    # better MXU utilization than the per-image slab grid. Stride-s 1x1 is
-    # subsample-then-matmul.
-    if (
-        aligned.kernel_shape == (1, 1)
-        and dilation == (1, 1)
-        and padding == (0, 0)
-        and aligned.bsc is not None
-        and policy.pallas_enabled()
-        and _bsc_pallas_ok(aligned.bsc, policy)
-    ):
-        xs = x[:, :: stride[0], :: stride[1], :]
-        n, ho, wo, c = xs.shape
-        x2d = xs.reshape(n * ho * wo, c)
-        if aligned.cin_pad != aligned.cin:
-            x2d = jnp.pad(x2d, ((0, 0), (0, aligned.cin_pad - aligned.cin)))
-        from caffe_escoin_tpu.kernels.bsc_pallas import bsc_spmm_pallas
-
-        out2d = bsc_spmm_pallas(x2d, aligned.bsc, tile_m=policy.spmm_tile_m,
-                                interpret=policy.interpret,
-                                mxu_dtype=policy.resolved_mxu_dtype())
-        out = out2d.reshape(n, ho, wo, aligned.cout)
-        return _epilogue(out, aligned.bias, relu)
-
-    if (
-        stride == (1, 1)
-        and dilation == (1, 1)
-        and aligned.bsc is not None
-        and sconv_pallas.supported(x, aligned, policy)
-    ):
-        return sconv_pallas.sconv(
-            x,
-            aligned,
-            padding=padding,
-            relu=relu,
-            policy=policy,
-            batch_parallel=batch_parallel,
-        )
+    # Traced pattern (weights passed as jit arguments): im2col + the
+    # run-time SpMM executor.
     return conv2d_lowered_sparse(
         x, aligned, stride=stride, padding=padding, dilation=dilation,
-        relu=relu, policy=policy,
-    )
+        relu=relu, policy=policy, residual=residual)
 
 
 def conv2d(

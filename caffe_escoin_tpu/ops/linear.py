@@ -35,7 +35,7 @@ def linear_sparse(x, sparse_w, bias=None, *, relu=False,
     inference deployment) routes through the XBSP static block unroll,
     the same fast executor the conv path uses; zero blocks cost nothing
     and the bias/relu epilogue fuses per block-column. Traced patterns
-    fall back to the portable gather SpMM."""
+    run the run-time SpMM executor (`spmm.bsc_spmm_traced`)."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if isinstance(sparse_w, BSC):
@@ -46,7 +46,7 @@ def linear_sparse(x, sparse_w, bias=None, *, relu=False,
             out = xla_block_sparse.spmm(x2d, sparse_w, bias=bias,
                                         relu=relu).reshape(*lead, m)
             return out
-        out2d = spmm_kernels.bsc_spmm(x2d, sparse_w)
+        out2d = spmm_kernels.bsc_spmm_traced(x2d, sparse_w, policy)
     elif isinstance(sparse_w, ELL):
         out2d = spmm_kernels.ell_spmm(sparse_w, x2d.T).T
         m = sparse_w.shape[0]

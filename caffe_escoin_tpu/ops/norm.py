@@ -20,12 +20,12 @@ def lrn_across_channels(x, *, local_size=5, alpha=1e-4, beta=0.75, k=1.0,
     ACROSS_CHANNELS with alpha pre-divided by local_size
     (`lrn_layer.cpp:104` uses alpha/size).
 
-    Perf note (r3): LRN dominated AlexNet/GoogLeNet e2e ("other" bucket
-    1.4ms of a 2.1ms net). Two fixes: (a) the windowed sum is built from
+    Perf note: LRN can dominate AlexNet/GoogLeNet e2e (the "other"
+    bucket). Two fixes: (a) the windowed sum is built from
     shifted channel slices (the reference's scale_ running update,
     `lrn_layer.cpp:86-116`) instead of reduce_window over the lane
     dimension; (b) for Caffe's default beta=0.75, s^-0.75 = r*sqrt(r) with
-    r = rsqrt(s) — three cheap VPU ops instead of the exp/log `power`
+    r = rsqrt(s) — three cheap elementwise ops instead of the exp/log `power`
     lowering. Division becomes a multiply.
 
     ``groups=r`` runs the normalization over r INDEPENDENT logical

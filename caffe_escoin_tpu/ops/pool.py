@@ -204,11 +204,9 @@ def pool2d_packed(x, kernel, *, stride=None, padding=(0, 0), mode="max",
         # block), so ONE per-packed-pixel reduction U over unit-stride
         # shifted lane-block views serves every phase: out_j[v] =
         # U[r_out*v + j], i.e. the packed output is the row-major
-        # lane-merge reshape of U. No strided slices: the r5 ResNet b32
-        # op profile measured the strided-slice form below at ~380us of
-        # gather/relayout copies (copy.212 + pad.2.clone +5 gathers) in
-        # slow compile-service eras, vs a bytes-bound elementwise chain
-        # for this formulation.
+        # lane-merge reshape of U. No strided slices: the strided-slice
+        # form below lowers to gather/relayout copies, while this
+        # formulation is a bytes-bound elementwise chain.
         taps0 = [((dx - pw) // r_in, (dx - pw) % r_in) for dx in range(kw)]
         du_min = min(du for du, _ in taps0)
         du_max = max(du for du, _ in taps0)

@@ -2,14 +2,12 @@
 
 Why: the first conv of every ImageNet CNN (GoogLeNet/ResNet 7x7/s2,
 AlexNet 11x11/s4, reference `models/*/train_val.prototxt`) reads a
-3-channel image. On TPU the channel (lane) dimension is physically padded
-to 128, so cin=3 occupies 3/128 of every MXU operand row AND the conv
-iterates 7x7 kernel windows over a stride-2 access pattern — the r5
-GoogLeNet op profile measured conv1/7x7_s2 at 289 us/iter (26% of the
-whole composed net, b16) against a ~20 us compute bound.
+3-channel image: cin=3 fills 3 of a matrix unit's 128-wide contraction
+per tap, AND the conv iterates 7x7 kernel windows over a stride-2 access
+pattern, so the stem runs far from its compute bound.
 
-The fix (the well-known TPU "space-to-depth" stem transform, used by
-MLPerf ResNet TPU submissions; re-derived here for arbitrary k/s/p): when
+The fix (the well-known "space-to-depth" stem transform, used by MLPerf
+ResNet submissions; re-derived here for arbitrary k/s/p): when
 stride == r in both dims, an [N, H, W, C] image can be re-laid-out as
 [N, H/r, W/r, r*r*C] (phases move into lanes) and the stride-r conv
 becomes a STRIDE-1 conv over the s2d grid with a remapped kernel:

@@ -1,14 +1,12 @@
 """W-pair packed layout: full-lane execution for narrow-channel towers.
 
-TPU arrays tile the last dimension into 128-element lanes; an NHWC
-activation with C < 128 is PHYSICALLY padded to 128 lanes, so every HBM
-read/write of a C=64 tensor moves 2x its logical bytes. Measured r5
-(logs/exp_k3_r5.jsonl): the entire ResNet-50 56x56/C=64 tower sits exactly
-at this physical bound — 56x56 64->64 k3 b32 runs 76us whether the padded
-ifmap is materialized, pre-padded, or eliminated outright (a single shifted
-conv measures the same 77us), because 25.6MB of logical traffic is 51.2MB
-of physical traffic at C=64. The r4 "pad-copy headroom" on this family was
-an artifact of computing the speed-of-light bound on logical bytes.
+Built for an accelerator whose arrays tile the last dimension into
+128-element lanes: there an NHWC activation with C < 128 is PHYSICALLY
+padded to 128 lanes, so every device-memory read/write of a C=64 tensor
+moves 2x its logical bytes, and the ResNet-50 56x56/C=64 tower sits at
+that physical bound whatever the executor. The GPU has no such padding;
+whether the pass pays there is an open measurement (ROADMAP design
+item 2).
 
 The fix is a LAYOUT, not a kernel: pack r adjacent W-pixels into the lane
 dimension (r = 128//C), turning (N, H, W, C) into (N, H, W/r, C*r) — full
@@ -29,7 +27,7 @@ retile pass ever materializes):
 Everything remains an ordinary XLA conv / XBSP block-sparse conv on the
 packed weight; block sparsity survives as the packed weight's own zero
 structure. The reference has no counterpart (GPU gathers are per-lane;
-this is TPU tiled-layout physics) — the closest analogue is its channel-
+this is tiled-layout physics) — the closest analogue is its channel-
 blocked weight reorganization at model-load time
 (`src/caffe/layers/base_conv_layer.cpp:46-273`).
 """

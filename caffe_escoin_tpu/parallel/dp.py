@@ -2,7 +2,7 @@
 
 Reference counterpart: the whole of `src/caffe/parallel.cpp` — per-GPU solver
 replicas, rank-0 weight broadcast, gradient ncclAllReduce + 1/N scaling
-(`parallel.cpp:189-256`). On TPU all of that machinery collapses into
+(`parallel.cpp:189-256`). Here all of that machinery collapses into
 shardings: params replicated over the mesh, batch split on the ``data`` axis;
 XLA inserts the gradient all-reduce (the psum) during SPMD partitioning, and
 overlap with backward compute comes from the latency-hiding scheduler rather

@@ -76,16 +76,13 @@ def spatial_conv2d(x, w, bias=None, *, mesh: Mesh, kernel: Tuple[int, int],
 
 def spatial_sconv2d(x, aligned, *, mesh: Mesh, padding, policy,
                     axis_name: str = "model", relu: bool = False,
-                    stride: Tuple[int, int] = (1, 1),
-                    engine: str = "auto"):
+                    stride: Tuple[int, int] = (1, 1)):
     """Spatially-partitioned DIRECT sparse conv: halo exchange + a sparse
     executor per shard (zero internal H padding — the halo provides it).
 
-    Engines (``engine``): "auto" routes through the full dispatcher
-    (ops/conv.conv2d_sconv → XBSP unroll/gathered, the performance-bearing
-    arms — r2 VERDICT item 8); "pallas" forces the v2 Pallas kernel
-    (stride-1 only). Either way the per-shard op sees the halo-extended
-    slab with padding=(0, pw), so its formulation is untouched.
+    Each shard runs the full dispatcher (ops/conv.conv2d_sconv → the XBSP
+    arms) on the halo-extended slab with padding=(0, pw), so its
+    formulation is untouched.
 
     Hard edges handled (SURVEY §7 flagged these): stride>1 needs each
     shard's row count divisible by the stride so the downsample phase is
@@ -104,26 +101,20 @@ def spatial_sconv2d(x, aligned, *, mesh: Mesh, padding, policy,
         raise ValueError(
             f"stride {sh} needs per-shard rows ({h_local}) divisible by it")
 
+    from caffe_escoin_tpu.ops import conv as conv_ops
+
     def fn(x_l):
         ext = halo_exchange(x_l, ph, axis_name)
-        if engine == "pallas":
-            from caffe_escoin_tpu.kernels import sconv_pallas
-
-            assert stride == (1, 1), "pallas spatial engine is stride-1"
-            out = sconv_pallas.sconv(ext, aligned, padding=(0, pw),
-                                     relu=relu, policy=policy)
-        else:
-            from caffe_escoin_tpu.ops import conv as conv_ops
-
-            out = conv_ops.conv2d_sconv(
-                ext, aligned, stride=stride, padding=(0, pw),
-                dilation=(1, 1), relu=relu, policy=policy,
-                batch_parallel=True)
+        out = conv_ops.conv2d_sconv(
+            ext, aligned, stride=stride, padding=(0, pw),
+            dilation=(1, 1), relu=relu, policy=policy,
+            batch_parallel=True)
         # the extended slab can admit a trailing partial window the global
         # conv doesn't have; keep exactly the shard's output rows
         return out[:, : x_l.shape[1] // sh]
 
-    # check_vma off: pallas_call outputs carry no varying-axis metadata
+    # check_vma off: a traced pattern's Pallas kernel output carries no
+    # varying-axis metadata
     return jax.shard_map(
         fn, mesh=mesh,
         in_specs=P(None, axis_name, None, None),
@@ -137,9 +128,8 @@ def spatial_sconv_tower(x, aligneds, *, mesh: Mesh, policy,
     """DEEP-HALO chain: a sequence of stride-1 'same'-pad sparse convs
     under ONE shard_map entry and ONE halo exchange.
 
-    The r4 capture put the per-call fixed cost of shard_map + ppermute at
-    ~1.3us — 17-19% of a 14x14/7x7 layer (SCALING.jsonl
-    halo_overhead_1dev). Instead of exchanging (kh-1)/2 rows per layer,
+    The per-call fixed cost of shard_map + ppermute weighs most on small
+    (14x14/7x7) layers. Instead of exchanging (kh-1)/2 rows per layer,
     exchange the SUM of the chain's halos once, then let each conv consume
     its margin: layer i computes on a slab extended by sum_{j>=i} ph_j
     rows, so its edge rows are exactly the values the global net computes
@@ -182,8 +172,8 @@ def spatial_sconv_tower(x, aligneds, *, mesh: Mesh, policy,
                 # GLOBAL-edge correction: the global net re-pads every
                 # layer with zeros, so an edge shard's remaining margin
                 # rows must be zero — not the conv-of-real-data the deep
-                # margin computes there (measured 2% edge mismatch
-                # without this). Interior shards keep neighbor-region
+                # margin computes there (an edge mismatch without
+                # this). Interior shards keep neighbor-region
                 # values. The select fuses into the epilogue.
                 h_ext = ext.shape[1]
                 rows = jnp.arange(h_ext)[None, :, None, None]
@@ -208,11 +198,10 @@ def spatial_sconv_chain(x, aligneds, *, mesh: Mesh, policy,
     The middle point between per-layer `spatial_sconv2d` calls (L
     shard_map entries, L exchanges) and `spatial_sconv_tower` (1 entry,
     1 exchange, duplicated margin compute that loses on one device): one
-    entry, L exchanges, exact per-layer compute. On a single chip the
-    ~1.3us fixed shard_map dispatch (SCALING.jsonl halo_overhead_1dev)
-    amortizes over the whole chain — the 7x7-map tail that per-layer
-    chaining left at +14.5% — and on a real slice each exchange is still
-    just one ppermute of (kh-1)/2 rows. Exactness: stride-1 kh=2*ph+1
+    entry, L exchanges, exact per-layer compute. On a single device the
+    fixed shard_map dispatch amortizes over the whole chain — what small
+    (7x7) maps pay most under per-layer chaining — and across devices each
+    exchange is still just one ppermute of (kh-1)/2 rows. Exactness: stride-1 kh=2*ph+1
     convs return exactly the shard's rows (h + 2ph - kh + 1 == h), and
     ppermute's zero fill at global edges IS the global zero padding."""
     from caffe_escoin_tpu.engine.context import ConvMode

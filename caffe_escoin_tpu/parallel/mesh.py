@@ -2,9 +2,10 @@
 
 The reference's distribution layer is single-process multi-GPU NCCL threads
 (`src/caffe/parallel.cpp:327-362` NCCL::Run, one worker thread per GPU).
-TPU-native replacement: a `jax.sharding.Mesh` over all addressable devices;
-parallelism is expressed as shardings + collectives compiled by XLA over
-ICI/DCN, not as explicit communicator calls.
+Replacement: a `jax.sharding.Mesh` over all addressable devices;
+parallelism is expressed as shardings + collectives compiled by XLA (NCCL
+over NVLink between GPUs), not as explicit communicator calls. The cards
+of a host are joined all to all, so the mesh shape follows the algorithm.
 
 Axes convention: ``data`` (batch / DP), ``model`` (output-channel TP or
 spatial partitioning). One-axis meshes fold the other to size 1.

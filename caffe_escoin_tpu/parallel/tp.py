@@ -7,10 +7,10 @@ mesh. Two mechanisms:
 * **Dense/GSPMD**: annotate conv/FC weights with P(..., "model") shardings and
   jit the whole net — XLA's SPMD partitioner propagates activation shardings
   and inserts all-gathers where layers need full channels (LRN, shortcuts).
-  This is the idiomatic TPU path: no explicit collectives in user code.
+  This is the idiomatic XLA path: no explicit collectives in user code.
 * **Sparse/shard_map**: the BSC block-column arrays are sharded on their
-  leading (cout block-column) axis; each device runs the Pallas kernel on its
-  local block columns, producing its cout slice. Activations are replicated
+  leading (cout block-column) axis; each device runs the run-time SpMM
+  executor on its local block columns, producing its cout slice. Activations are replicated
   in, outputs stay cout-sharded (gather only when a consumer needs them
   unsharded).
 """
@@ -72,8 +72,7 @@ def tp_conv_lowered(x, aligned: AlignedConvWeight, *, mesh: Mesh,
     x replicated in; output [N,Ho,Wo,Cout_padded] cout-sharded out.
     Call with concrete (non-traced) `aligned` (shard_map closure rule)."""
     from caffe_escoin_tpu.engine.context import ExecutionPolicy
-    from caffe_escoin_tpu.kernels.bsc_pallas import bsc_spmm_pallas
-    from caffe_escoin_tpu.kernels.spmm import bsc_spmm
+    from caffe_escoin_tpu.kernels.spmm import bsc_spmm_traced
     from caffe_escoin_tpu.ops.conv import im2col
 
     policy = policy or ExecutionPolicy()
@@ -99,11 +98,7 @@ def tp_conv_lowered(x, aligned: AlignedConvWeight, *, mesh: Mesh,
             bsc, blocks=blocks_l, block_row=brow_l, bcol_nnz=bnnz_l,
             shape=local_shape,
         )
-        if policy.pallas_enabled():
-            out = bsc_spmm_pallas(cols_l, local, tile_m=policy.spmm_tile_m,
-                                  interpret=policy.interpret)
-        else:
-            out = bsc_spmm(cols_l, local)
+        out = bsc_spmm_traced(cols_l, local, policy)
         out = out + bias_l
         if relu:
             out = jnp.maximum(out, 0.0)

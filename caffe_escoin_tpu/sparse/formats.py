@@ -1,6 +1,6 @@
 """Sparse matrix containers and dense<->sparse conversion.
 
-TPU-first re-design of the reference's CSR weight machinery
+A re-design of the reference's CSR weight machinery
 (`src/caffe/layers/base_conv_layer.cpp:46-273` WeightAlign,
 `src/caffe/util/math_functions.cu:103-152` caffe_gpu_sparse_dense2csr,
 `include/caffe/util/sconv.hpp` column-blocked CSR).
@@ -12,15 +12,16 @@ pruned model traces/compiles once:
               row lengths are data-dependent so it is NOT used inside jit
               compute paths directly.
 * ``ELL``   — row-padded CSR (every row padded to the max nnz/row). Static
-              shapes; the TPU analogue of the reference's per-row CSR kernels
+              shapes; the analogue of the reference's per-row CSR kernels
               (`sconv_shm`, `math_functions.cu:264-319`): the gather-FMA inner
               loop becomes a fixed-trip-count loop with masked tail.
 * ``BSR``   — block compressed sparse row with fixed (bm, bk) blocks sized to
-              MXU granularity. The performance-carrying format: nonzero blocks
-              hit the 128x128 systolic array, zero blocks are skipped entirely.
-              The TPU analogue of the reference's column-blocked CSR
+              matrix-unit tiles. The performance-carrying format: nonzero
+              blocks run as dense tile products, zero blocks are skipped
+              entirely. The analogue of the reference's column-blocked CSR
               (`base_conv_layer.cpp:108-231` + OC_BLOCK=16 register blocking in
-              `sconv.hpp:57-589`), re-sized from AVX registers to MXU tiles.
+              `sconv.hpp:57-589`), re-sized from AVX registers to 128x128
+              tiles.
 
 Conversions are vectorized numpy/jnp (never per-element Python loops) and run
 once at weight-align time, mirroring the reference's one-shot dense->CSR
@@ -270,7 +271,7 @@ class BSC:
     W[K = KH*KW*Cin, N = Cout], each output-channel block-column j carries the
     list of its nonzero K-blocks. Because W's rows are ordered (kh, kw, cin)
     and bk divides Cin, every K-block index decodes statically to a single
-    (kernel offset, cin-block) pair — the TPU rebirth of the reference's
+    (kernel offset, cin-block) pair — the rebirth of the reference's
     "stretched" column index (`caffe_gpu_stretch`,
     `src/caffe/util/math_functions.cu:706-727`): the same block list drives
     both im2col+SpMM (index into columns) and direct conv (decode to a shifted

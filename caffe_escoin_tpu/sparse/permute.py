@@ -1,6 +1,6 @@
 """Sparsity-pattern-aware channel permutation.
 
-The MXU only skips work at block granularity, and a random unstructured
+The executors only skip work at block granularity, and a random unstructured
 pattern at 90% sparsity has essentially no empty (128,128) blocks
 (P(empty) = 0.9^16384 ~ 0). REAL pruned weights are not random — magnitude
 pruning kills correlated structures (weak channels, weak offset planes) —
@@ -16,7 +16,7 @@ Permutation semantics: for W[K, Cout] with K = (offset, cin) rows,
 The greedy objective is the number of live (bk, bn) blocks of the permuted
 GEMM-view weight, i.e. exactly the XBSP executors' work term.
 
-This is the TPU counterpart of the literature's channel-permutation tricks
+This is the block-sparse counterpart of the literature's channel-permutation tricks
 for N:M sparsity (and of the reference's column-blocked CSR reordering goal,
 `base_conv_layer.cpp:108-231`, which blocked columns for cache locality).
 """
@@ -210,7 +210,7 @@ def _apply_cin_perm(p, perm, layer, blob_shapes):
 
 def deploy_unstructured(net, params, *, block_shape=(128, 128),
                         min_density=0.05, layers=None, log=None):
-    """Deploy an unstructured-sparse checkpoint on block-skipping MXU
+    """Deploy an unstructured-sparse checkpoint on block-skipping
     executors: greedy channel permutation (cout of each permutable
     producer, propagated for free into its consumer's cin) concentrating
     the survivors into fewer live blocks, then block densification

@@ -181,8 +181,8 @@ def _trace_fc_bottom_shape(net, bottom: Optional[str], k: int, log=print):
     """Resolve the spatial (N,H,W,C) shape feeding an fc layer, looking
     through Flatten/Reshape (whose bottoms keep Caffe's (c,h,w) element
     order) so the row reorder still applies when the model flattens
-    explicitly before InnerProduct (ADVICE r2: a 2-D bottom silently kept
-    Caffe row order and produced wrong fc outputs)."""
+    explicitly before InnerProduct (a 2-D bottom would otherwise keep
+    Caffe row order and produce wrong fc outputs)."""
     shapes = getattr(net, "blob_shapes", {})
     producers = {t: l.spec for l in net.layers for t in l.spec.tops}
     seen = 0
@@ -258,8 +258,8 @@ def assign_to_params(net, params: Dict, loaded: Dict[str, Dict],
             continue
         # shape check, then cast into the framework's dtype discipline.
         # A key the framework's init never produced means the import rule
-        # and the layer disagree (ADVICE r2: the Scale gamma/beta mismatch
-        # sailed through this loop silently) — that's an error, not a skip.
+        # and the layer disagree (a Scale gamma/beta mismatch would sail
+        # through this loop silently) — that's an error, not a skip.
         for k, v in list(p.items()):
             ref = params[name].get(k) if isinstance(params[name], dict) \
                 else None

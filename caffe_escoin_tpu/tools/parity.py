@@ -15,6 +15,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from caffe_escoin_tpu.utils.runtime import PLATFORMS
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -24,7 +26,8 @@ def main(argv=None):
     ap.add_argument("--num-classes", type=int, default=10)
     ap.add_argument("--sparsity", type=float, default=0.9)
     ap.add_argument("--block-shape", type=int, nargs=2, default=[128, 128])
-    ap.add_argument("--platform", default="auto")
+    ap.add_argument("--platform", default="auto", choices=PLATFORMS,
+                    help="pin the jax platform (auto: JAX's choice)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tol", type=float, default=1e-3,
                     help="max allowed |prob diff| (f32 accumulation-order "
@@ -41,10 +44,10 @@ def main(argv=None):
                          "comparing — checks the deployed graph")
     args = ap.parse_args(argv)
 
-    if args.platform != "auto":
-        from caffe_escoin_tpu.utils.benchmark import force_platform
+    from caffe_escoin_tpu.utils import runtime
 
-        force_platform(args.platform)
+    runtime.select_platform(args.platform)
+    runtime.setup_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np

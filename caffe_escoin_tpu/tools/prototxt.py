@@ -890,7 +890,7 @@ def net_to_prototxt(specs: List[LayerSpec],
     spec omitted (conv kernel/stride/pad/bias_term defaults, Pooling
     mode, Scale bias_term) — those come back with their schema-default
     values, so the round trip is exact for parser-originated specs and
-    default-normalizing for hand-authored ones (ADVICE r4; exactness on
+    default-normalizing for hand-authored ones (exactness on
     the reference's own files is what tests/test_prototxt.py asserts).
     ``compat="caffe"`` emits only schema-expressible fields (strictly
     consumable by reference tooling — framework-only params like fused

@@ -1,21 +1,21 @@
-"""Multi-chip scaling benchmark: batch-sharded sparse inference throughput.
+"""Multi-device scaling benchmark: batch-sharded sparse inference throughput.
 
-BASELINE's scaling row asks for nnz/s per chip at 1 / 2 / ... / N devices
+BASELINE's scaling row asks for nnz/s per device at 1 / 2 / ... / N devices
 with >=80% scaling efficiency (the reference's analogue claim is the
 multi-GPU table in `docs/multigpu.md:26`). This harness measures
 data-parallel sparse-conv inference (weights closed over and replicated —
-the XBSP executor engages exactly as on one chip; XLA partitions every dot's
+the XBSP executor engages exactly as on one device; XLA partitions every dot's
 batch dimension over the mesh with zero collectives in the forward path) and
 writes one JSON row per device count.
 
-On real multi-chip hardware run it unchanged. Without a real slice, run on
-the virtual CPU mesh to validate the mechanism and partitioning
+On several GPUs run it unchanged. Without them, run on the virtual CPU
+mesh to validate the mechanism and partitioning
 (`XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu`);
-virtual-mesh wall-clock shares one host's cores, so per-chip efficiency
-there is a lower bound dominated by host contention, not ICI.
+virtual-mesh wall-clock shares one host's cores, so per-device efficiency
+there is a lower bound dominated by host contention, not the interconnect.
 
-    python -m caffe_escoin_tpu.tools.scaling --devices 1,2,4,8 \
-        --model resnet50 --out SCALING.jsonl
+    python -m caffe_escoin_tpu.tools.scaling --devices 1,2,4 \
+        --model resnet50 --out chiprun_out/scaling.jsonl
 """
 
 from __future__ import annotations
@@ -115,8 +115,7 @@ def measure_halo(n_dev: int, sparsity: float, iters: int, seed: int = 0):
     from caffe_escoin_tpu.sparse.weight_align import weight_align
     from caffe_escoin_tpu.utils.pruning import prune_conv_weight
 
-    # XBSP engine (r3): the performance-bearing arm inside the spatial
-    # partition; the v2 Pallas kernel remains reachable via engine="pallas"
+    # XBSP engine: the performance-bearing arm inside the spatial partition
     policy = ExecutionPolicy(block_shape=(16, 16))
     rng = np.random.default_rng(seed)
     cin, cout = 64, 64
@@ -130,8 +129,7 @@ def measure_halo(n_dev: int, sparsity: float, iters: int, seed: int = 0):
     mesh = Mesh(np.array(jax.devices()[:n_dev]), ("model",))
     x = jnp.asarray(rng.standard_normal((2, h, w, cin)).astype(np.float32))
     fwd = jax.jit(lambda x: halo.spatial_sconv2d(
-        x, aligned, mesh=mesh, padding=(1, 1), policy=policy,
-        engine="auto"))
+        x, aligned, mesh=mesh, padding=(1, 1), policy=policy))
     jax.block_until_ready(fwd(x))
     best = float("inf")
     for _ in range(iters):

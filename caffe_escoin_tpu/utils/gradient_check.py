@@ -1,6 +1,6 @@
 """Centered finite-difference gradient checker.
 
-TPU re-make of the reference's `GradientChecker`
+A re-make of the reference's `GradientChecker`
 (`include/caffe/test/test_gradient_check_util.hpp:18-60`), the utility nearly
 every reference layer test uses to validate analytic backward passes. Here the
 analytic gradient is `jax.grad`, so the checker's job shifts: it validates the

@@ -8,9 +8,9 @@ provide magnitude pruning at two granularities:
 
 * element-wise (unstructured) — parity with the reference's CSR models;
 * block-wise — prunes (bm, bk) blocks by Frobenius norm, producing BSR-friendly
-  structured sparsity that the MXU block-skipping kernels turn into wall-clock
+  structured sparsity that the block-skipping executors turn into wall-clock
   speedup (an unstructured 90%-sparse matrix has almost no empty 128-wide
-  blocks; structured pruning is the TPU-native path to the paper's speedups).
+  blocks).
 """
 
 from __future__ import annotations
@@ -94,6 +94,34 @@ def prune_conv_weight(w_hwio, sparsity: float, block_shape=None):
     return out.reshape(kh, kw, cin, cout)
 
 
+def prune_net_params(net, params, sparsity: float,
+                     block_shape: Optional[Tuple[int, int]] = (128, 128)):
+    """Prune a Net's conv and InnerProduct weights for a sparse deployment:
+    block-wise in ``block_shape`` tiles, or element-wise when it is None.
+    The stem conv over the image (fewer than 32 input channels) stays
+    dense. Returns a new params dict; other layers' params are shared."""
+    import jax.numpy as jnp
+
+    out = dict(params)
+    for layer in net.layers:
+        name, kind = layer.spec.name, layer.spec.type
+        p = params.get(name)
+        if not isinstance(p, dict) or "w" not in p:
+            continue
+        w = np.asarray(p["w"])
+        if kind in ("Convolution", "ConvolutionReLU"):
+            if w.shape[2] < 32:
+                continue
+            q = prune_conv_weight(w, sparsity, block_shape)
+        elif kind == "InnerProduct":
+            q = (prune_magnitude(w, sparsity) if block_shape is None
+                 else prune_blocks(w, sparsity, block_shape))
+        else:
+            continue
+        out[name] = dict(p, w=jnp.asarray(q))
+    return out
+
+
 def sparsity_of(w) -> float:
     w = np.asarray(w)
     return float((w == 0).mean())
@@ -102,8 +130,8 @@ def sparsity_of(w) -> float:
 def densify_blocks(w, block_shape: Tuple[int, int], min_density: float):
     """Convert an unstructured-sparse matrix into a block-executable one by
     zeroing blocks whose element density is below ``min_density`` (the lossy
-    step of deploying an unstructured checkpoint on block-skipping MXU
-    kernels; pair with masked fine-tuning to recover accuracy).
+    step of deploying an unstructured checkpoint on block-skipping
+    executors; pair with masked fine-tuning to recover accuracy).
 
     Returns (w_densified, stats) with the extra-zeroed weight fraction and
     the resulting block density."""
@@ -138,15 +166,14 @@ def agp_sparsity(it: int, *, start_iter: int, end_iter: int,
     at ``start_iter`` to ``final_sparsity`` at ``end_iter``, updated every
     ``freq`` iterations (stepwise-constant between updates).
 
-    This is the capability the r4 accuracy experiment showed missing:
-    ONE-SHOT block-90% pruning collapses AlexNet-scale training to chance
-    (0.098) and masked fine-tuning cannot repair it, while a gradual ramp
+    ONE-SHOT block-90% pruning can collapse AlexNet-scale training to
+    chance, and masked fine-tuning cannot repair it, while a gradual ramp
     lets the surviving blocks absorb the pruned capacity step by step. The
     reference consumed externally pruned models and its only in-training
     lever was L1/`regularization_type` pressure (`caffe.proto:307-308`,
     `sgd_solver.cpp:144-206`); producing accurate BLOCK-sparse models is
-    this framework's own burden because MXU block skipping is what turns
-    sparsity into TPU wall-clock (docs/PERFORMANCE.md)."""
+    this framework's own burden because block skipping is what turns
+    sparsity into wall-clock time."""
     if it < start_iter:
         return float(initial_sparsity)
     if it >= end_iter:

@@ -1,6 +1,6 @@
 // Native data-loader core: .cerec record file reader with mmap + prefetch.
 //
-// TPU-native counterpart of the reference's C++ data path: LMDB cursor
+// Counterpart of the reference's C++ data path: LMDB cursor
 // (`src/caffe/util/db_lmdb.cpp`), background InternalThread prefetcher and
 // BlockingQueue double buffering (`include/caffe/layers/base_data_layer.hpp:52-78`,
 // `src/caffe/util/blocking_queue.cpp`). LMDB is replaced by a flat

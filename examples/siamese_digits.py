@@ -85,12 +85,13 @@ def main():
     ap.add_argument("--iters", type=int, default=400)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--base_lr", type=float, default=0.02)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu",
+                    choices=["auto", "cpu", "gpu"])
     args = ap.parse_args()
 
-    if args.platform == "cpu":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
+    from caffe_escoin_tpu.utils.runtime import select_platform
+
+    select_platform(args.platform)
     import jax
     import jax.numpy as jnp
 

@@ -137,7 +137,7 @@ def main():
                     help="comma set of experiment legs: oneshot (prune + "
                          "masked fine-tune), deploy (unstructured-"
                          "checkpoint pipeline), gradual (AGP in-training "
-                         "block pruning — the r5 route to ACCURATE block-"
+                         "block pruning — the route to ACCURATE block-"
                          "sparse models; one-shot block pruning collapses "
                          "at AlexNet scale, docs/EXPERIMENTS_alexnet.md)")
     ap.add_argument("--gradual_iters", type=int, default=0,
@@ -147,16 +147,16 @@ def main():
     ap.add_argument("--report", default="")
     ap.add_argument("--workdir", default="/tmp/cescoin_experiment")
     ap.add_argument("--platform", default="cpu",
+                    choices=["auto", "cpu", "gpu"],
                     help="jax platform (default cpu: training these small "
-                         "models is host-friendly and leaves the TPU free "
-                         "for benches; pass tpu to use the chip)")
+                         "models is host-friendly; pass gpu to use the "
+                         "card)")
     args = ap.parse_args()
 
     import jax
-    if args.platform:
-        from caffe_escoin_tpu.utils.benchmark import force_platform
+    from caffe_escoin_tpu.utils.runtime import select_platform
 
-        force_platform(args.platform)
+    select_platform(args.platform)
     import jax.numpy as jnp
 
     from caffe_escoin_tpu.data.datasets import cerec_source, write_cerec
@@ -270,8 +270,8 @@ def main():
 
     # ---- GRADUAL (AGP) block pruning: sparsity ramped DURING training
     # from the dense checkpoint, masks recomputed from live weights every
-    # schedule step, then frozen-mask fine-tuning. This is the leg the r4
-    # experiment showed missing: one-shot block-90% collapses AlexNet to
+    # schedule step, then frozen-mask fine-tuning. This is the leg the
+    # accuracy experiment showed missing: one-shot block-90% collapses AlexNet to
     # chance (0.098) and masked fine-tuning cannot repair it; the cubic
     # ramp (utils/pruning.agp_sparsity) lets surviving blocks absorb the
     # pruned capacity step by step. Reference analogue: its in-training
@@ -340,8 +340,7 @@ def main():
     # fine-tuning recovers the loss, and the block-sparse executors score
     # the result. The accuracy delta + achieved live-block reduction IS
     # the cost of converting the reference's unstructured workload into
-    # MXU-executable structure (docs/PERFORMANCE.md "Unstructured sparsity
-    # on TPU").
+    # block-executable structure.
     if "deploy" in modes:
         from caffe_escoin_tpu.sparse.permute import deploy_unstructured
 
@@ -354,7 +353,7 @@ def main():
         solver.set_param_masks(masks_of(pruned))
         solver.step(train_iter(), args.finetune_iters, log=lambda m: None)
         # deployment block shape: the experiment's block for small nets,
-        # the MXU-native 128x128 when the layers are big enough
+        # the executors' native 128x128 when the layers are big enough
         dep_block = block
         p, dep = deploy_unstructured(
             net, solver.params, block_shape=dep_block, min_density=0.05,

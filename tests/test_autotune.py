@@ -1,8 +1,8 @@
 """Graph-level arm calibration (engine/autotune.calibrate_graph): the
 graph-scope completion of the never-lose floor. Per-layer ISOLATED autotune
-picks can lose COMPOSED (the captured r3 GoogLeNet failure: every layer's
-arm measured as a winner, yet e2e ran 0.886x vs dense-bf16 while a
-forced-dense sparse graph ran 1.01x); calibration A/Bs the whole graph over
+picks can lose COMPOSED (a GoogLeNet whose every per-layer arm measured as
+a winner ran slower end to end than its forced-dense sparse graph);
+calibration A/Bs the whole graph over
 candidate assignments and persists the winners.
 
 Deterministic on CPU: time_fn consults choose_arm (like a real trace) but
@@ -182,3 +182,49 @@ def test_calibrate_polish_flips_to_better_alternative(two_keys):
     assert rep["arms"][key_a] == "gathered_cols"
     assert autotune._CACHE[key_a] == "gathered_cols"
     assert consult()[0] == "gathered_cols"
+
+
+def test_cache_key_carries_device_kind(monkeypatch):
+    """A table measured on one card is never served on another: the key
+    names the backend AND the device kind."""
+    pol = ExecutionPolicy(block_shape=(8, 8))
+    w = prune_conv_weight(np.random.default_rng(1).standard_normal(
+        (3, 3, 16, 16)).astype(np.float32), 0.8, (8, 8))
+    al = weight_align(jnp.asarray(w), None, policy=pol)
+    args = (al, (1, 8, 8, 16), (1, 1), (1, 1), (1, 1), jnp.float32)
+    kind = jax.devices()[0].device_kind
+    key = autotune.cache_key(*args)
+    assert f"cpu:{kind}" in key
+
+    class Dev:
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev()])
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    other = autotune.cache_key(*args)
+    assert "gpu:NVIDIA H100 80GB HBM3" in other and other != key
+
+
+def test_measure_arms_logs_failing_arm(monkeypatch, capsys):
+    """An arm that raises is dropped from the timings but never silently:
+    its error is printed."""
+    from caffe_escoin_tpu.kernels import xla_block_sparse as xbs
+    from caffe_escoin_tpu.utils import benchmark
+
+    pol = ExecutionPolicy(block_shape=(8, 8))
+    w = prune_conv_weight(np.random.default_rng(2).standard_normal(
+        (1, 1, 16, 16)).astype(np.float32), 0.8, (8, 8))
+    al = weight_align(jnp.asarray(w), None, policy=pol)
+
+    def broken(*a, **k):
+        raise RuntimeError("kernel refused by the compiler")
+
+    monkeypatch.setattr(xbs, "conv_gathered", broken)
+    monkeypatch.setattr(benchmark, "device_time", lambda *a, **k: (
+        a[0](a[1]), 1e-3)[1])
+    times = autotune.measure_arms(al, pol, (1, 4, 4, 16), (1, 1), (0, 0),
+                                  (1, 1))
+    assert "gathered" not in times and "unroll" in times
+    err = capsys.readouterr().err
+    assert "arm 'gathered' failed" in err
+    assert "kernel refused by the compiler" in err

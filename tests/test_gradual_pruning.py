@@ -1,6 +1,6 @@
 """Gradual (AGP) in-training pruning + group-lasso regularization.
 
-The r4 accuracy experiment (docs/EXPERIMENTS_alexnet.md) measured one-shot
+The accuracy experiment (docs/EXPERIMENTS_alexnet.md) measured one-shot
 block-90% pruning collapsing AlexNet-scale training to chance; these test
 the training-time ramp that fixes it (utils/pruning.agp_sparsity /
 PruningSchedule / Solver.set_pruning_schedule) and the block-granular

@@ -87,8 +87,8 @@ def test_rejects_non_lmdb(tmp_path):
 
 
 def test_data_layer_reads_lmdb(tmp_path):
-    """The Data layer consumes a reference-style LMDB in place (the r4
-    VERDICT's last interop edge: `db_lmdb.cpp` databases)."""
+    """The Data layer consumes a reference-style LMDB in place
+    (`db_lmdb.cpp` databases)."""
     from caffe_escoin_tpu.engine.context import ExecutionPolicy
     from caffe_escoin_tpu.nn import LayerSpec
     from caffe_escoin_tpu.nn.net import LAYER_REGISTRY

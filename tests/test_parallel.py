@@ -88,11 +88,10 @@ def test_halo_spatial_conv_matches_dense(rng, model_axis):
 
 @requires_8
 def test_halo_spatial_sparse_conv_matches_dense(rng):
-    """Halo exchange + Pallas direct sconv (interpret) on a 4-way spatial
-    partition — the BASELINE config-5 execution pattern."""
+    """Halo exchange + the XBSP direct sconv on a 4-way spatial partition —
+    the BASELINE config-5 execution pattern."""
     mesh = mesh_lib.make_mesh(data=2, model=4)
-    policy = ExecutionPolicy(block_shape=(16, 16), use_pallas=True,
-                             interpret=True, spmm_tile_m=64)
+    policy = ExecutionPolicy(block_shape=(16, 16))
     w = prune_conv_weight(rng.standard_normal((3, 3, 16, 32)).astype(np.float32),
                           0.85, (16, 16))
     b = rng.standard_normal(32).astype(np.float32)
@@ -156,8 +155,8 @@ def test_scaling_harness_two_devices():
 @requires_8
 @pytest.mark.parametrize("shards", [2, 4, 8])
 def test_halo_xbsp_engine_matches_dense(rng, shards):
-    """The performance-bearing XBSP arm inside the spatial partition
-    (r2 VERDICT item 8): 2/4/8-way H shards vs the single-device oracle."""
+    """The performance-bearing XBSP arm inside the spatial partition:
+    2/4/8-way H shards vs the single-device oracle."""
     mesh = mesh_lib.make_mesh(data=8 // shards, model=shards)
     policy = ExecutionPolicy(block_shape=(8, 8))
     w = prune_conv_weight(
@@ -166,7 +165,7 @@ def test_halo_xbsp_engine_matches_dense(rng, shards):
     aligned = weight_align(w, b, policy=policy)
     x = rng.standard_normal((2, 16, 8, 16)).astype(np.float32)
     out = halo.spatial_sconv2d(jnp.asarray(x), aligned, mesh=mesh,
-                               padding=(1, 1), policy=policy, engine="auto")
+                               padding=(1, 1), policy=policy)
     ref = conv2d_reference(x, w, b, padding=(1, 1))
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4,
                                atol=1e-5)
@@ -234,10 +233,9 @@ def test_halo_stride_residual_shape_guard():
 def test_dp_inference_forward_is_collective_free():
     """The batch-sharded sparse inference forward must lower with ZERO
     cross-device collectives (weights replicated and closed over, batch
-    sharded) — docs/SCALING.md's scaling argument: on a real slice the
-    only loss vs linear is input distribution, so the single-chip
-    saturation curve (bench.py --batch-curve) carries the efficiency
-    claim. The reference's DP forward was likewise collective-free
+    sharded) — the scaling argument: across real devices the only loss
+    vs linear is input distribution, so the single-device saturation
+    curve (bench.py --batch-curve) carries the efficiency claim. The reference's DP forward was likewise collective-free
     (NCCL only touched gradients, `parallel.cpp:227-256`)."""
     mesh = mesh_lib.make_mesh(data=8, model=1)
     policy = ExecutionPolicy(block_shape=(8, 8))
@@ -263,8 +261,7 @@ def test_dp_inference_forward_is_collective_free():
 @requires_8
 def test_halo_deep_tower_matches_sequential(rng):
     """spatial_sconv_tower: ONE exchange for a k3 -> 1x1 -> k3 chain ==
-    the layerwise global reference (the r5 shard_map-edge amortization;
-    SCALING.jsonl halo_overhead_1dev was 17-19% on small maps)."""
+    the layerwise global reference (the shard_map-edge amortization)."""
     mesh = mesh_lib.make_mesh(data=2, model=4)
     policy = ExecutionPolicy(block_shape=(16, 16), use_pallas=False)
     ws = [
@@ -308,8 +305,7 @@ def test_halo_deep_tower_rejects_oversized_halo(rng):
 @requires_8
 def test_halo_chain_matches_sequential(rng):
     """spatial_sconv_chain: ONE shard_map entry, per-layer exchanges, no
-    margin duplication — must equal the layerwise global reference (the
-    r5h amortization of the 7x7-map +14.5% per-layer edge)."""
+    margin duplication — must equal the layerwise global reference."""
     mesh = mesh_lib.make_mesh(data=2, model=4)
     policy = ExecutionPolicy(block_shape=(16, 16), use_pallas=False)
     ws = [

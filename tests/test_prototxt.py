@@ -1,5 +1,5 @@
 """Prototxt (NetParameter text) ingestion round-trips against the
-reference's own model files (VERDICT r2 missing #1).
+reference's own model files.
 
 The reference's config language is protobuf text
 (`ReadNetParamsFromTextFileOrDie`; the zoo files in
@@ -336,8 +336,8 @@ def test_emit_roundtrip_forward_equality():
 ])
 def test_emit_reference_idempotence(relpath):
     """load -> emit -> load is the identity on the reference's own model
-    files: the emitted text preserves every spec field exactly (the
-    VERDICT r3 'bidirectional config loop' bar)."""
+    files: the emitted text preserves every spec field exactly (a
+    bidirectional config loop)."""
     path = os.path.join(REF, relpath)
     specs1, shapes1, name1 = load_net(path)
     text = net_to_prototxt(specs1, shapes1, name=name1)

@@ -269,10 +269,10 @@ def test_param_multipliers_from_specs_end_to_end():
 
 
 def test_rss_guard_snapshots_and_stops(tmp_path):
-    """The relay-client host-RSS leak guard (engine/solver.py): when VmRSS
-    crosses rss_limit_gb the loop snapshots and stops cleanly (instead of
-    the r4 OOM kill at ~130 GB), and a fresh solver restores and
-    continues from the same iteration."""
+    """The host-RSS guard (engine/solver.py): when VmRSS crosses
+    rss_limit_gb the loop snapshots and stops cleanly (instead of an OOM
+    kill), and a fresh solver restores and continues from the same
+    iteration."""
     from caffe_escoin_tpu.nn import LayerSpec
 
     specs = [

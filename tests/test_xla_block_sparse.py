@@ -149,7 +149,7 @@ def test_linear_sparse_routes_to_xbsp():
 
 def test_arm_dispatch_rules():
     """best_arm: unroll for k>1 / reduce-1x1; gathered for expand-1x1;
-    dense for full-union expand-1x1 with MXU-filling cin (the profiled
+    dense for full-union expand-1x1 with block-filling cin (the
     write-bound regime)."""
     rng = np.random.default_rng(5)
     pol = ExecutionPolicy(block_shape=(128, 128))
@@ -162,10 +162,10 @@ def test_arm_dispatch_rules():
 
     assert xla_block_sparse.best_arm(align(256, 256, 3, 0.9), pol) == "unroll"
     assert xla_block_sparse.best_arm(align(512, 256, 1, 0.9), pol) == "unroll"
-    # heuristic-path never-lose floor (r5): without measurement, >= 25%
-    # live blocks runs dense — the hand rules composed to a measured e2e
-    # LOSS at 70% sparsity (0.847x, BENCH_SWEEP r4); autotune (the
-    # deployment default) measures instead of gating
+    # heuristic-path never-lose floor: without measurement, >= 25% live
+    # blocks runs dense — the hand rules composed to an e2e loss at 70%
+    # sparsity; autotune (the deployment default) measures instead of
+    # gating
     assert xla_block_sparse.best_arm(align(256, 128, 1, 0.5), pol) == "dense"
     assert xla_block_sparse.best_arm(align(256, 128, 1, 0.7), pol) == "dense"
     a = align(128, 512, 1, 0.5)  # K = one 128-block -> union is always full
@@ -195,7 +195,7 @@ def test_all_arms_match_oracle_through_dispatch(arm):
 def test_unstructured_pattern_dispatches_dense():
     """90% UNSTRUCTURED pruning leaves ~every 128x128 block live; the
     dispatcher must fall back to dense conv (block-density profitability,
-    the reference's base_conv_layer.cpp:752 fallback at MXU granularity)."""
+    the reference's base_conv_layer.cpp:752 fallback at block granularity)."""
     rng = np.random.default_rng(8)
     pol = ExecutionPolicy(block_shape=(128, 128))
     w = prune_conv_weight(
@@ -223,7 +223,7 @@ def test_unstructured_pattern_dispatches_dense():
     (1, 8, 8, 32, 32, 1, 0, 0.9),
 ])
 def test_gathered_cols_matches_oracle(shape):
-    """Per-column gathered GEMM (XBSP-GC, r3) vs the dense oracle."""
+    """Per-column gathered GEMM (XBSP-GC) vs the dense oracle."""
     n, h, w, cin, cout, k, pad, sp = shape
     pol = ExecutionPolicy(block_shape=(8, 8))
     rng = np.random.default_rng(3)
@@ -265,9 +265,9 @@ def test_gathered_cols_dispatch_via_policy():
 
 def test_block_dense_gate_precedes_autotune(tmp_path, monkeypatch):
     """The block-density dense fallback must run BEFORE the autotune cache:
-    per-layer isolated measurement keeps weight blocks VMEM-warm and can
-    (measured r3 on-chip) pick unroll/gathered for unstructured-dense
-    patterns that lose 2x end-to-end. A poisoned cache entry must not be
+    per-layer isolated measurement keeps weight blocks cache-warm and can
+    pick unroll/gathered for unstructured-dense patterns that lose
+    end-to-end. A poisoned cache entry must not be
     consulted."""
     rng = np.random.default_rng(9)
     pol = ExecutionPolicy(block_shape=(128, 128), autotune=True)
@@ -279,8 +279,7 @@ def test_block_dense_gate_precedes_autotune(tmp_path, monkeypatch):
 
     from caffe_escoin_tpu.engine import autotune as at
     x_shape = (2, 8, 8, 128)
-    key = at.cache_key(al, x_shape, (1, 1), (0, 0), (1, 1),
-                       pol.resolved_mxu_dtype())
+    key = at.cache_key(al, x_shape, (1, 1), (0, 0), (1, 1), jnp.float32)
     with at._LOCK:
         at._CACHE[key] = "unroll"  # poison: what a warm microbench chose
     try:
